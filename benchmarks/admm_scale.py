@@ -1,15 +1,15 @@
-"""ADMM-family at-scale benchmark: 1e6-pixel TV denoising (VERDICT r4 #4).
+"""ADMM-family at-scale benchmark: 1e6-pixel TV denoising.
 
 The reference treats its five solvers uniformly
-(``/root/reference/proxmin/algorithms.py:426-850``); until r5 this
-framework's perf evidence covered pgm/adaprox only. This benchmark puts
+(``proxmin/algorithms.py:426-850``). This benchmark puts
 ``admm`` and ``sdmm`` on the same footing as the flagship: an H x H
 anisotropic TV denoise (the ``examples/image_tv.py`` scenario — the
 natural ADMM-family flagship because the constraints are matrix-free
 difference operators), measured as marginal ms/iter between two
-iteration budgets of one compiled solve, with a naive HBM roofline.
+iteration budgets of one compiled solve, with a naive memory roofline
+against the card's peak bandwidth (``bench.PEAK_GBS``).
 
-Naive HBM traffic model per iteration (f32 words of size H*W = P):
+Naive memory traffic model per iteration (f32 words of size H*W = P):
 
 - ``admm`` (one constraint):  X-update reads X, Z, U and writes X
   (LX is recomputed on the fly: stencil reads of X); ``do_the_mm``
@@ -19,9 +19,7 @@ Naive HBM traffic model per iteration (f32 words of size H*W = P):
   writes X; per-constraint do_the_mm as above.  ~14 P words = 56 P
   bytes.
 
-These are *naive* bounds in the same sense as bench.py's: XLA keeps
-loop-invariant/fused intermediates in VMEM at these sizes, so the
-achieved figure can exceed the spec — both numbers are printed.
+These are *naive* bounds in the same sense as bench.py's. Needs a GPU.
 
 Run: ``python benchmarks/admm_scale.py [H]`` (default 1024 = 1e6 px).
 """
@@ -37,11 +35,14 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-V5E_PEAK_GBS = 819.0
 
 
 def main():
     import jax.numpy as jnp
+
+    import bench
+
+    device, peak_gbs = bench.device_info()
 
     from proxmin_tpu import admm, operators, sdmm
     from proxmin_tpu.linop import FunctionOperator
@@ -89,10 +90,9 @@ def main():
         print(*a, file=sys.stderr, flush=True)
 
     def marginal(call, lo=200, hi=1000, reps=5):
-        # independent minima of lo/hi over several reps: the shared
-        # pool's dispatch jitter (~tens of ms, occasionally a stalled
-        # call) exceeds the lo-call runtime, so few-rep paired slopes
-        # can sample physically impossible (negative) values; the wide
+        # independent minima of lo/hi over several reps: dispatch jitter
+        # can exceed the lo-call runtime, so few-rep paired slopes can
+        # sample physically impossible (negative) values; the wide
         # iteration spread makes the true slope dominate the jitter
         def t(n):
             best = 1e9
@@ -121,7 +121,7 @@ def main():
         log(f"admm  {H}x{W}: {m_admm * 1e3:.4f} ms/iter "
             f"(compile {compile_admm:.1f}s) — naive bound "
             f"{bytes_admm / 1e6:.0f} MB/iter -> {gbs_admm:.0f} GB/s "
-            f"vs {V5E_PEAK_GBS:.0f} peak")
+            f"vs {peak_gbs:.0f} peak")
         rows["admm"] = {"ms_per_iter": round(m_admm * 1e3, 4),
                         "naive_mb_per_iter": round(bytes_admm / 1e6, 1),
                         "achieved_gbs": round(gbs_admm, 0),
@@ -143,7 +143,7 @@ def main():
         log(f"sdmm  {H}x{W}: {m_sdmm * 1e3:.4f} ms/iter "
             f"(compile {compile_sdmm:.1f}s) — naive bound "
             f"{bytes_sdmm / 1e6:.0f} MB/iter -> {gbs_sdmm:.0f} GB/s "
-            f"vs {V5E_PEAK_GBS:.0f} peak")
+            f"vs {peak_gbs:.0f} peak")
         rows["sdmm"] = {"ms_per_iter": round(m_sdmm * 1e3, 4),
                         "naive_mb_per_iter": round(bytes_sdmm / 1e6, 1),
                         "achieved_gbs": round(gbs_sdmm, 0),
@@ -163,7 +163,7 @@ def main():
                                 "iterations": int(res.iterations)}
 
     print(json.dumps({"metric": f"admm_family_tv_{H}x{W}",
-                      "pixels": P, **rows}))
+                      "pixels": P, "device": device, **rows}))
 
 
 if __name__ == "__main__":

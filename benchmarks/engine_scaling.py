@@ -1,17 +1,17 @@
 """Engine scaling study: XLA-fused loop vs the Pallas single-pass kernel
 across channel counts, plus the weighted strided-step comparison.
 
-Reproduces the numbers quoted in docs/DESIGN.md and the README. Timing
-uses marginal slopes between two iteration counts of the same compiled
-executable (cancels per-call dispatch overhead; see bench.py).
+Timing uses marginal slopes between two iteration counts of the same
+compiled executable (cancels per-call dispatch overhead; see bench.py).
 
-Run on the TPU:  python benchmarks/engine_scaling.py
+Run on a GPU:  python benchmarks/engine_scaling.py
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
@@ -21,6 +21,9 @@ import proxmin_tpu as pt  # noqa: E402
 from proxmin_tpu import operators  # noqa: E402
 from proxmin_tpu.nmf import (  # noqa: E402
     _make_fused_pgm_runner, pgm_nmf_iteration,
+)
+from proxmin_tpu.ops.nmf_kernels import pixel_tile  # noqa: E402
+from proxmin_tpu.nmf import (  # noqa: E402
 )
 
 ITERS_LO, ITERS_HI = 100, 300
@@ -58,7 +61,8 @@ def engines_at(C, K, N):
 
     t_xla = _slope(lambda n: np.asarray(run_xla(A, S, n)[0]))
     runner = _make_fused_pgm_runner(
-        operators.prox_plus, None, 0.0, 8192, C, K, N, jnp.float32.dtype
+        operators.prox_plus, None, 0.0, pixel_tile(K, N), C, K, N,
+        jnp.float32.dtype
     )
     t_pal = _slope(lambda n: np.asarray(runner(A, S, Y, n)[0]))
     print(f"C={C:4d} K={K:3d} N={N:8d}: xla {t_xla * 1e3:7.3f} ms/iter  "
@@ -69,9 +73,7 @@ def engines_at(C, K, N):
 def weighted_engines_at(C, K, N, stride=10):
     """Weighted engine comparison at one shape: the XLA driver
     (warm-started strided WeightedPGMStepper) vs the fused weighted
-    Pallas kernel, both at the same refresh stride (VERDICT r3 item 2 —
-    settle the weighted crossover with data instead of extrapolating
-    from the unweighted study)."""
+    Pallas kernel, both at the same refresh stride."""
     rng = np.random.default_rng(0)
     Y = jnp.asarray(rng.random((C, N)).astype(np.float32))
     W = jnp.asarray((0.5 + rng.random((C, N))).astype(np.float32))
@@ -103,11 +105,9 @@ def weighted_engines_at(C, K, N, stride=10):
 
 
 def store_dtype_at(C, K, N, stride=10):
-    """bf16-STORAGE speed rows (r4 late addition): the unweighted store
-    was measured capacity-only-at-flagship (slower at C<=128); this
-    sweeps the newly-supported weighted-PGM and fused-adaprox stores,
-    whose traffic mix differs (W stream halves too; adaprox reaches a
-    94 MB/iter naive floor with bf16 moments+store)."""
+    """bf16-STORAGE speed rows for the weighted-PGM and fused-adaprox
+    stores (the W stream halves too; adaprox reaches a 94 MB/iter naive
+    floor with bf16 moments+store)."""
     rng = np.random.default_rng(0)
     Y = jnp.asarray(rng.random((C, N)).astype(np.float32))
     W = jnp.asarray((0.5 + rng.random((C, N))).astype(np.float32))

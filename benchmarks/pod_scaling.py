@@ -1,10 +1,10 @@
-"""Pod-scaling harness: the sharded PGM-NMF flagship over a parametrized
-mesh (VERDICT r3 item 4).
+"""Scaling harness: the sharded PGM-NMF flagship over a parametrized
+mesh.
 
 Runs the whole-solve shard_map (``proxmin_tpu.parallel.nmf_pgm_sharded``,
 the ``nmf(mesh=...)`` pgm path) at 1/2/4/8-way pixel sharding — optionally
-with a two-level ``("dcn", "data")`` axis split (the standard multi-slice
-layout) — and reports, per mesh size:
+with a two-level ``("host", "data")`` axis split (the multi-host layout)
+— and reports, per mesh size:
 
 * measured **ms/iter** (marginal between two iteration counts of the
   compiled whole-solve, min over repetitions — cancels dispatch/compile);
@@ -15,17 +15,14 @@ layout) — and reports, per mesh size:
   collective-layout audit tests pin, so the modeled volume is checked
   against what XLA actually emits, not against intentions.
 
-On this environment there is ONE real TPU chip, so real-ICI numbers
-cannot be produced here; the harness is exercised on the virtual
-8-device CPU mesh (``--virtual``; CI-smoked by
-``tests/test_pod_scaling.py``) and is ready to run unchanged on a pod
-slice the day multi-chip hardware exists (see docs/SERVING.md
-"Pod scaling").
+The harness runs on the virtual 8-device CPU mesh (``--virtual``;
+CI-smoked by ``tests/test_pod_scaling.py``) and unchanged on a host with
+several GPUs.
 
 Usage:
     python benchmarks/pod_scaling.py --virtual --devices 1,2,4,8
     python benchmarks/pod_scaling.py --virtual --two-level --weighted
-    python benchmarks/pod_scaling.py --devices 1,4 --N 4194304  # real pod
+    python benchmarks/pod_scaling.py --devices 1,4 --N 4194304  # 4 GPUs
 
 Prints one JSON line per mesh configuration.
 """
@@ -56,11 +53,11 @@ def _parse_args(argv=None):
     ap.add_argument("--step-stride", type=int, default=10,
                     help="weighted Lipschitz refresh stride")
     ap.add_argument("--two-level", action="store_true",
-                    help="split the pixel axis over ('dcn', 'data') "
+                    help="split the pixel axis over ('host', 'data') "
                          "instead of a flat ('data',) axis")
     ap.add_argument("--virtual", action="store_true",
-                    help="run on a virtual 8-device CPU mesh (no TPU "
-                         "pod needed)")
+                    help="run on a virtual 8-device CPU mesh (no "
+                         "GPUs needed)")
     return ap.parse_args(argv)
 
 
@@ -120,8 +117,8 @@ def run_scaling(device_counts, C=5, K=7, N=262144, iters_lo=50,
             log(f"# skipping {d}-way (N={N} not divisible)")
             continue
         if two_level and d >= 2:
-            mesh = make_mesh(shape=(2, d // 2), axis_names=("dcn", "data"))
-            data_axis = ("dcn", "data")
+            mesh = make_mesh(shape=(2, d // 2), axis_names=("host", "data"))
+            data_axis = ("host", "data")
         else:
             mesh = make_mesh(shape=(d,))
             data_axis = "data"

@@ -1,8 +1,8 @@
 """Batched solving: thousands of independent problems in ONE compiled call.
 
 The reference solves one problem per Python loop
-(``/root/reference/proxmin/algorithms.py``); on TPU, many *small*
-independent solves leave the chip idle. ``proxmin_tpu.functional`` exposes
+(``proxmin/algorithms.py``); on an accelerator, many *small*
+independent solves leave the device idle. ``proxmin_tpu.functional`` exposes
 the solver cores as pure functions, so ``jax.vmap`` turns a batch of
 problems into a single device program: the ``lax.while_loop`` runs until
 every lane converges, masking finished lanes, and each lane's result is

@@ -2,9 +2,8 @@
 checkpointed continuation.
 
 The reference's adaprox runs a Python loop with per-block prox
-sub-iterations (``/root/reference/proxmin/algorithms.py:248-423``). The
-TPU rebuild offers three progressively faster executions of the same
-adam recursion:
+sub-iterations (``proxmin/algorithms.py:248-423``). This package
+offers three executions of the same adam recursion:
 
 1. XLA driver with the sub-iteration prox loop (reference semantics);
 2. XLA driver with the separable closed-form prox
@@ -12,8 +11,9 @@ adam recursion:
 3. the fused Pallas engine (``engine="pallas"``): gradient, both moment
    EMAs, bias correction and the closed-form prox in ONE pass over the
    pixel data per iteration; ``moment_dtype=jnp.bfloat16`` halves the
-   Adam-state HBM traffic with in-register casts (measured 0.13 vs
-   0.19 ms/iter at the 1e6-pixel flagship — see docs/BENCHMARKS.md).
+   Adam-state memory traffic with in-register casts. The fused engine
+   compiles for CUDA GPUs only; elsewhere this demo runs the same calls on
+   the XLA engine.
 
 The demo fits a K=4 spectral unmixing problem, then CONTINUES the solve
 through the fused engine's M/V warm-start — the moments round-trip
@@ -29,6 +29,7 @@ import numpy as np
 import jax.numpy as jnp
 
 import proxmin_tpu as pt
+from proxmin_tpu.ops.nmf_kernels import cuda_available
 
 
 def make_problem(N, C=6, K=4, seed=11):
@@ -46,16 +47,21 @@ def make_problem(N, C=6, K=4, seed=11):
 
 
 def main(N=20000):
+    engine = "pallas" if cuda_available() else "xla"
     Y, A0, S0 = make_problem(N)
-    loss0 = float(pt.nmf.log_likelihood(jnp.asarray(A0), jnp.asarray(S0),
-                                        Y=jnp.asarray(Y)))
+
+    def loss(X):
+        return float(pt.nmf.log_likelihood(*map(jnp.asarray, X),
+                                           Y=jnp.asarray(Y)))
+
+    loss0 = loss((A0, S0))
 
     # one call on the fused engine (bf16 moment storage)
     res = pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
-                     engine="pallas", moment_dtype=jnp.bfloat16,
-                     e_rel=0, max_iter=150)
-    loss1 = res.loss
-    print(f"fused adam: loss {loss0:.1f} -> {loss1:.1f} "
+                     engine=engine, separable_prox="auto",
+                     moment_dtype=jnp.bfloat16, e_rel=0, max_iter=150)
+    loss1 = loss(res.x)
+    print(f"adam on {engine}: loss {loss0:.1f} -> {loss1:.1f} "
           f"after {res.iterations} iterations")
     assert loss1 < 0.1 * loss0
 
@@ -63,10 +69,12 @@ def main(N=20000):
     # preemption/checkpoint boundary looks like)
     res2 = pt.nmf.nmf(np.asarray(Y), np.array(res.x[0]),
                       np.array(res.x[1]), algorithm="adaprox",
-                      engine="pallas", moment_dtype=jnp.bfloat16,
-                      e_rel=0, max_iter=150, M=res.M, V=res.V)
-    print(f"continued:  loss {loss1:.1f} -> {res2.loss:.1f}")
-    assert res2.loss < loss1
+                      engine=engine, separable_prox="auto",
+                      moment_dtype=jnp.bfloat16, e_rel=0, max_iter=150,
+                      M=res.M, V=res.V)
+    loss2 = loss(res2.x)
+    print(f"continued:  loss {loss1:.1f} -> {loss2:.1f}")
+    assert loss2 < loss1
 
     # the XLA separable driver solves the same recursion (engine parity
     # at fixed low iteration counts; see tests/test_pallas_ops.py)

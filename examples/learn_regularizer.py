@@ -7,7 +7,7 @@ the inner optimization via implicit differentiation at its fixed point
 (``proxmin_tpu.functional.make_differentiable_pgm_solver``; O(1) memory
 in the inner iteration count, no unrolling).
 
-The reference (NumPy loops) has no analogue; on TPU the whole bilevel
+The reference (NumPy loops) has no analogue; here the whole bilevel
 program — inner solves, implicit VJP, outer updates — is one
 differentiable JAX computation.
 

@@ -1,6 +1,6 @@
 """Multi-chip serving — export once, serve anywhere (even preempted).
 
-The production-serving story for pod-scale solves, end to end:
+The production-serving story for multi-device solves, end to end:
 
 1. EXPORT the explicit-collective sharded whole-solve as a StableHLO
    artifact (`export_nmf_pgm_sharded`): fixed mesh topology, runtime
@@ -76,7 +76,7 @@ def main():
     Y_d = put(Y, P(None, "data"))
     W_d = put(W, P(None, "data"))
 
-    # 3. "preemption": 30 iterations, then the pod goes away...
+    # 3. "preemption": 30 iterations, then the job goes away...
     outs = fresh(A_d, S_d, Y_d, W_d, rep(jnp.int32(30)))
     A_m, S_m, it = outs[0], outs[1], outs[2]
     print(f"preempted at it={int(it)}, loss={float(outs[5]):.4f}")

@@ -1,40 +1,33 @@
-"""proxmin_tpu — TPU-native proximal-splitting optimization framework.
+"""proxmin_tpu — accelerator-native proximal-splitting framework.
 
 A ground-up JAX/XLA re-design with the capabilities of the reference
 ``proxmin`` package (proximal splitting algorithms for constrained, possibly
 non-convex optimization, plus constrained matrix factorization): solvers are
 jit-compiled ``lax.while_loop`` drivers with on-device convergence tests,
-proximal operators are pure functions (with Pallas kernels for the hot
-paths), and the NMF/CMF application layer shards its pixel axis over a
-``jax.sharding.Mesh`` with XLA collectives for the factor-gradient
-reductions.
+proximal operators are pure functions (with fused Pallas kernels for the
+NMF hot path on CUDA GPUs), and the NMF/CMF application layer shards its
+pixel axis over a ``jax.sharding.Mesh`` with XLA collectives for the
+factor-gradient reductions.
 
-Top-level surface mirrors the reference (``/root/reference/proxmin/
-__init__.py``): solvers and operators are re-exported flat; ``nmf`` and
-``utils`` are submodules.
+Top-level surface mirrors the reference (``proxmin/__init__.py``): solvers
+and operators are re-exported flat; ``nmf`` and ``utils`` are submodules.
 """
 
 import os as _os
 
 import jax as _jax
 
-# Persistent XLA compilation cache, on by default (opt out with
-# PROXMIN_TPU_NO_COMPILE_CACHE=1, or pre-set jax_compilation_cache_dir).
-# Solver drivers are closure-configured jits, so repeated solves re-lower;
-# caching the compiled executables makes the second-and-later runs cheap —
-# essential on TPU deployments where compiles are expensive.
-if (_os.environ.get("PROXMIN_TPU_NO_COMPILE_CACHE") != "1"
-        and _jax.config.jax_compilation_cache_dir is None):
-    _cache_dir = _os.environ.get(
-        "PROXMIN_TPU_COMPILE_CACHE",
-        _os.path.expanduser("~/.cache/proxmin_tpu/xla"),
-    )
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # read-only FS etc. — cache is an optimization only
-        pass
+# Persistent XLA compilation cache. Solver drivers are closure-configured
+# jits, so repeated solves re-lower; caching the compiled executables makes
+# later processes cheap. ``JAX_COMPILATION_CACHE_DIR`` (read by JAX itself)
+# wins; otherwise the cache lives at a fixed path inside the checkout, so it
+# is found again from one process to the next.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if _jax.config.jax_compilation_cache_dir is None:
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .algorithms import *  # noqa: F401,F403
 from .operators import *  # noqa: F401,F403

@@ -6,7 +6,7 @@ The reference's only continuation mechanism is AdaProx warm start via the
 solver's resumable state is a pytree, so checkpointing is generic:
 
 * :func:`save_checkpoint` / :func:`load_checkpoint` persist any pytree.
-  Orbax is used when available (async, multi-host-safe, the TPU-native
+  Orbax is used when available (async, multi-host-safe, the accelerator-native
   choice); otherwise a pickle fallback (``.pkl``) keeps the feature
   dependency-free.
 * Solver ``.state`` pytrees are NOT plain dicts of arrays: they carry

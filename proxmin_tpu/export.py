@@ -19,8 +19,11 @@ export per dataset.
 operators (their matrices) and any closure-captured data are baked into
 the artifact, so every solver in the package is AOT-servable.
 
-The exported artifact is shape- and platform-specialized (TPU artifacts run
-on TPU). For multi-shape serving, export one artifact per shape bucket.
+The exported artifact is shape- and platform-specialized (an artifact
+exported on a CUDA GPU runs on one). The fused NMF artifacts embed the
+Pallas kernels as Triton calls, whose IR is tied to the JAX version that
+wrote them: re-export after upgrading JAX. For multi-shape serving, export
+one artifact per shape bucket.
 """
 
 import jax
@@ -30,11 +33,17 @@ import jax.numpy as jnp
 from jax import export as jax_export
 
 from . import operators
+from .ops.nmf_kernels import pixel_tile
 from .nmf import (
     _make_fused_adaprox_runner,
     _make_fused_pgm_runner,
     _make_fused_weighted_pgm_runner,
 )
+
+#: The fused kernels lower to this custom call on CUDA; ``jax.export``
+#: serializes it only when told to (its IR carries no stability promise).
+_TRITON_CALL = jax_export.DisabledSafetyCheck.custom_call(
+    "__gpu$xla.gpu.triton")
 
 __all__ = [
     "export_nmf_solver", "export_nmf_adaprox_solver",
@@ -225,7 +234,7 @@ def export_bsdmm_solver(x_shapes, proxs_f, steps_f_cb, proxs_g=None,
 @with_matmul_precision
 def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
                       prox_S=operators.prox_plus,
-                      e_rel=1e-3, tile_n=8192, dtype=jnp.float32,
+                      e_rel=1e-3, tile_n=None, dtype=jnp.float32,
                       store_dtype=None, weighted=False, step_stride=None,
                       step_adapt=False, resume=False,
                       return_carries=None):
@@ -269,16 +278,17 @@ def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
     weighted = bool(weighted)
     if return_carries is None:
         return_carries = resume
+    tile_n = pixel_tile(int(K), int(N), tile_n)
     if weighted:
         run_full = _make_fused_weighted_pgm_runner(
-            prox_A, prox_S, float(e_rel), int(tile_n), int(C), int(K),
+            prox_A, prox_S, float(e_rel), tile_n, int(C), int(K),
             int(N), jnp.dtype(dtype), step_stride,
             adapt=bool(step_adapt),
             store_dtype=jnp.dtype(store_dtype) if store_dtype else None,
         )
     else:
         run_full = _make_fused_pgm_runner(
-            prox_A, prox_S, float(e_rel), int(tile_n), int(C), int(K),
+            prox_A, prox_S, float(e_rel), tile_n, int(C), int(K),
             int(N), jnp.dtype(dtype),
             store_dtype=jnp.dtype(store_dtype) if store_dtype else None,
         )
@@ -338,13 +348,14 @@ def export_nmf_solver(C, K, N, prox_A=operators.prox_plus,
                      jax.ShapeDtypeStruct((), jnp.int32)]   # next refresh
         else:
             args.append(jax.ShapeDtypeStruct((K, K), f32))  # SSt
-    return jax_export.export(jax.jit(run))(*args).serialize()
+    return jax_export.export(jax.jit(run), disabled_checks=[_TRITON_CALL])(
+        *args).serialize()
 
 
 @with_matmul_precision
 def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
                               prox_S=operators.prox_plus,
-                              e_rel=1e-3, tile_n=8192,
+                              e_rel=1e-3, tile_n=None,
                               dtype=jnp.float32, b1=0.9, b2=0.999,
                               eps=1e-8, moment_dtype=None,
                               store_dtype=None,
@@ -363,7 +374,7 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
     the bias-correction clock restarts, reference
     ``algorithms.py:347-359`` semantics). ``moment_dtype`` (e.g.
     ``jnp.bfloat16``) bakes the reduced-precision moment storage into
-    the artifact — the fastest measured adaprox engine on v5e.
+    the artifact.
 
     Artifact-only EXACT preemption (vs ``warm_start``'s
     clock-restarting reference semantics): ``resume=True`` exports the
@@ -408,7 +419,8 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
         return_carries = resume
     mdt = jnp.dtype(moment_dtype) if moment_dtype else jnp.dtype(jnp.float32)
     run_full = _make_fused_adaprox_runner(
-        prox_A, prox_S, float(e_rel), int(tile_n), int(C), int(K),
+        prox_A, prox_S, float(e_rel), pixel_tile(int(K), int(N), tile_n),
+        int(C), int(K),
         int(N), jnp.dtype(dtype), float(b1), float(b2), float(eps),
         moment_dtype=jnp.dtype(moment_dtype) if moment_dtype else None,
         warm=bool(warm_start) or resume, weighted=weighted,
@@ -464,7 +476,8 @@ def export_nmf_adaprox_solver(C, K, N, prox_A=operators.prox_plus,
         ]
         if resume:
             args.append(jax.ShapeDtypeStruct((K,), f32))   # rowsum
-    return jax_export.export(jax.jit(run))(*args).serialize()
+    return jax_export.export(jax.jit(run), disabled_checks=[_TRITON_CALL])(
+        *args).serialize()
 
 
 @with_matmul_precision
@@ -484,7 +497,7 @@ def export_nmf_pgm_sharded(mesh, C, K, N, prox_A=operators.prox_plus,
     — for a fixed mesh TOPOLOGY: shape, axis names, and the factor
     layout ``A:(model,·) S:(·,data) Y/W:(model,data)``. Loading requires
     a mesh with the same device count (device *identities* may differ —
-    a pod restart serves the same artifact).
+    a restarted host serves the same artifact).
 
     Executable signature ``(A, S, Y, max_iter) -> (A', S', it, conv_A,
     conv_S, loss)`` — weighted inserts ``W: (C,N)`` after ``Y``
@@ -495,14 +508,14 @@ def export_nmf_pgm_sharded(mesh, C, K, N, prox_A=operators.prox_plus,
 
     ``step_stride``/``step_adapt`` bake the segmented strided Lipschitz
     refresh (warm-started sharded power iteration) exactly as in
-    ``nmf_pgm_sharded``. ``platforms`` (e.g. ``("tpu", "cpu")``) lowers
+    ``nmf_pgm_sharded``. ``platforms`` (e.g. ``("cuda", "cpu")``) lowers
     a multi-platform artifact — the sharded solve contains no
     platform-specific custom calls (its spectral bounds are power
     iterations, not LAPACK), so cross-platform export is safe; default
     is the current backend, matching the other export functions.
 
     ``resume=True`` exports the exact-warm-restart variant for
-    preempted pod solves: the signature appends the carried scalars
+    preempted multi-device solves: the signature appends the carried scalars
     after ``max_iter`` — ``it0: i32, conv_A: bool, conv_S: bool,
     loss: dtype`` always (the terminal flags keep a solve that already
     stopped — converged, or diverged with a nan-poisoned loss —

@@ -9,7 +9,7 @@ logging, driver caching). This module exposes the same compiled cores as
   call** — under ``vmap`` the ``lax.while_loop`` runs until every lane
   converges (converged lanes hold their fixed point, so results equal the
   per-problem solves). The reference (one Python loop per solve,
-  ``/root/reference/proxmin/algorithms.py``) has no analogue; on TPU this
+  ``proxmin/algorithms.py``) has no analogue; on an accelerator this
   turns thousands of small independent solves into one device program.
 * ``jax.jit`` / ``lax.map`` / checkpointing compose the same way.
 
@@ -549,7 +549,7 @@ def make_differentiable_sdmm_solver(prox_f, step_f, proxs_g, steps_g=None,
     :func:`make_differentiable_admm_solver` to constraint lists, so the
     whole solver family is uniformly differentiable (the reference
     treats all five solvers uniformly,
-    ``/root/reference/proxmin/algorithms.py:426-850``).
+    ``proxmin/algorithms.py:426-850``).
 
     The iteration map is one fixed-step SDMM update over
     ``w = (x, Z_1..M, U_1..M)`` (:func:`utils.update_variables`'s
@@ -612,7 +612,7 @@ def make_differentiable_bsdmm_solver(proxs_f, steps_f, proxs_g=None,
     """Differentiable block-SDMM via implicit differentiation at the
     fixed point — completes solver-family uniformity for the
     differentiable surface (reference treats all five solvers uniformly,
-    ``/root/reference/proxmin/algorithms.py:426-850``).
+    ``proxmin/algorithms.py:426-850``).
 
     The iteration map is one Gauss–Seidel sweep over the N blocks (each
     block's ``proxs_f`` sees the already-updated earlier blocks, like
@@ -737,8 +737,8 @@ def make_nmf_solver(prox_A=None, prox_S=None, e_rel=1e-3, max_iter=1000,
     until its own fixed-point tolerance.
 
     The weighted Lipschitz bounds use only matvec/elementwise power
-    iterations (vmap-safe; batched ``eigvalsh`` has no efficient TPU
-    lowering): the C channel Grams by ``cold_iters`` passes, the
+    iterations (vmap-safe; a vmapped ``eigvalsh`` is a poor fit for the
+    batch): the C channel Grams by ``cold_iters`` passes, the
     per-pixel bound by the implicit batched power iteration with its
     iterate warm-started ACROSS solver iterations in the loop carry
     (``cold_iters`` passes on the first iteration, ``warm_iters``
@@ -758,9 +758,8 @@ def make_nmf_solver(prox_A=None, prox_S=None, e_rel=1e-3, max_iter=1000,
 
     def lam_max(G, iters=24):
         # power iteration on the tiny K-by-K Gram: pure matvec/elementwise
-        # ops, which compose safely with vmap on TPU (batched
-        # jnp.linalg.eigvalsh — step_pgm's exact single-problem path —
-        # has no efficient batched TPU lowering)
+        # ops, which compose safely with vmap (step_pgm's exact
+        # single-problem path, jnp.linalg.eigvalsh, batches poorly)
         k = G.shape[0]
         v = jnp.ones((k,), G.dtype) + 0.01 * jnp.arange(k, dtype=G.dtype)
 

@@ -1,12 +1,12 @@
-"""Linear-operator abstraction — TPU-native replacement for MatrixAdapter.
+"""Linear-operator abstraction — accelerator-native replacement for MatrixAdapter.
 
 The reference wraps ``None`` / dense / scipy.sparse matrices in a
 ``MatrixAdapter`` with a lazily cached spectral norm computed via
-``scipy.sparse.linalg.eigs`` (``/root/reference/proxmin/utils.py:14-101``).
+``scipy.sparse.linalg.eigs`` (``proxmin/utils.py:14-101``).
 
 Here a :class:`LinearOperator` is a **pytree** (registered dataclass), so it
 can flow straight into jit-compiled solver drivers; the spectral quantity is
-computed on device by power iteration (MXU matmuls, fixed iteration count —
+computed on device by power iteration (matmuls, fixed iteration count —
 no host round trip, no sparse eigensolver). Identity operators carry no data
 and are specialized at trace time (zero-cost ``matvec``).
 
@@ -265,8 +265,8 @@ class FunctionOperator(LinearOperator):
     """Matrix-free linear operator from user ``matvec``/``rmatvec``
     callables.
 
-    The TPU-native replacement for the reference's scipy.sparse support
-    (``/root/reference/proxmin/utils.py:28-35,53-60``): instead of a
+    The accelerator-native replacement for the reference's scipy.sparse support
+    (``proxmin/utils.py:28-35,53-60``): instead of a
     sparse matrix, the user supplies the *action* of a structured
     operator (finite differences, convolutions, wavelets, ...) as
     jittable functions. The spectral quantity ``lambda_max(L^T L)`` is
@@ -362,7 +362,7 @@ class SparseOperator(LinearOperator):
     """Sparse linear operator backed by ``jax.experimental.sparse.BCOO``.
 
     The device-native replacement for the reference's scipy.sparse
-    ``MatrixAdapter`` support (``/root/reference/proxmin/utils.py:28-35,
+    ``MatrixAdapter`` support (``proxmin/utils.py:28-35,
     53-60``): scipy matrices convert to BCOO (COO indices + data on
     device, O(nnz) memory), matvecs lower to XLA scatter/gather dots,
     and the cached ``lambda_max(L^T L)`` comes from the same on-device
@@ -452,14 +452,14 @@ def as_linear_operator(L, axis=None):
 
 def MatrixAdapter(L, axis=None):
     """Reference-compatible alias for :func:`as_linear_operator`
-    (``/root/reference/proxmin/utils.py:38``)."""
+    (``proxmin/utils.py:38``)."""
     return as_linear_operator(L, axis=axis)
 
 
 @with_matmul_precision
 def get_spectral_norm(L):
     """Reference-compatible: ``lambda_max(L^T L)`` for ``None``/matrix/operator
-    (``/root/reference/proxmin/utils.py:14-35``)."""
+    (``proxmin/utils.py:14-35``)."""
     if L is None:
         return 1
     if isinstance(L, LinearOperator):

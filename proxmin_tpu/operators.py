@@ -1,7 +1,7 @@
 """Proximal operator library — pure-functional, jit/vmap/shard-compatible.
 
-TPU-native re-design of the reference operator library
-(``/root/reference/proxmin/operators.py``). Semantics match operator by
+accelerator-native re-design of the reference operator library
+(``proxmin/operators.py``). Semantics match operator by
 operator (same signatures, same relative/absolute threshold convention via
 ``_step_gamma``), with two deliberate differences:
 
@@ -16,9 +16,9 @@ operator (same signatures, same relative/absolute threshold convention via
   behavior.
 
 Every operator is elementwise (or a cheap reduction), so XLA fuses it into
-the surrounding matmul epilogues; they run on the VPU with no extra HBM
-round trip. Hand-written Pallas variants for the hottest ones live in
-``proxmin_tpu.ops`` and are parity-tested against these definitions.
+the surrounding matmul epilogues with no extra round trip through device
+memory; the fused NMF kernels in ``proxmin_tpu.ops`` call them inside the
+kernel body.
 """
 
 import functools

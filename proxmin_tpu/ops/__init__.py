@@ -1,36 +1,17 @@
-"""Hand-written Pallas TPU kernels for the hot paths.
+"""Hand-written Pallas kernels for the hot paths (NVIDIA GPUs, through
+Triton).
 
-Everything here is parity-tested against the jnp reference path and gated:
-the jnp implementations remain the default; kernels are opt-in where
-profiling shows XLA fusion leaves bandwidth on the table (SURVEY.md §7
-stage 9). Two kernels:
+* ``fused_nmf_pgm_step`` — a whole PGM iteration (S-side) in one pass over
+  the pixel data, emitting the *next* iteration's Gram so the Lipschitz
+  recursion stays exact. Drives ``proxmin_tpu.nmf.nmf_pgm_fused``.
+* ``fused_nmf_adaprox_step`` — the proximal-Adam sibling. Drives
+  ``proxmin_tpu.nmf.nmf_adaprox_fused``.
 
-* :func:`fused_nmf_grad` — one pass over the pixel data producing both
-  factor gradients, the S Gram and the loss without materializing the
-  residual D in HBM. Wins ~1.8x standalone (dispatch-bound contexts).
-* ``fused_nmf_pgm_step`` — a whole PGM iteration (S-side) in one HBM
-  pass, emitting the *next* iteration's Gram so the Lipschitz recursion
-  stays exact. Drives ``proxmin_tpu.nmf.nmf_pgm_fused``.
-
-Measured on TPU v5e at the 5x1e6 flagship shape (marginal ms/iter,
-dispatch overhead excluded): XLA solver loop 0.081, fused Pallas driver
-0.111 — XLA's in-loop fusion already reaches the bandwidth bound for this
-shape (it reads the true 5 channel rows where the kernel pads to 8), so
-the XLA path remains the default engine and the kernels stay opt-in.
+Both are parity-tested against the jnp reference path in Pallas's
+interpreter; ``engine='auto'`` routes a solve to them only on a CUDA GPU
+and only where they measured faster than XLA's code for the plain step.
 """
 
-from .nmf_kernels import fused_nmf_grad  # noqa: F401
-from .prox_kernels import (  # noqa: F401
-    prox_plus_pallas,
-    prox_soft_pallas,
-    prox_hard_pallas,
-    prox_unity_pallas,
-)
+from .nmf_kernels import fused_nmf_adaprox_step, fused_nmf_pgm_step  # noqa: F401
 
-__all__ = [
-    "fused_nmf_grad",
-    "prox_plus_pallas",
-    "prox_soft_pallas",
-    "prox_hard_pallas",
-    "prox_unity_pallas",
-]
+__all__ = ["fused_nmf_pgm_step", "fused_nmf_adaprox_step"]

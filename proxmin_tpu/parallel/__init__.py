@@ -6,7 +6,7 @@ matrix Y (C×N); sharding it across a ``jax.sharding.Mesh`` is the analogue
 of data/sequence parallelism (SURVEY.md §5). The tiny A factor (C×K)
 replicates (or shards its channel axis over an optional 'model' axis —
 tensor parallelism for many-channel problems); per-factor gradient
-reductions ride ICI via ``psum``.
+reductions are ``psum`` collectives.
 """
 
 from .sharding import (  # noqa: F401

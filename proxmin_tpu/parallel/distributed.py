@@ -1,16 +1,16 @@
 """Multi-process (multi-host) bring-up.
 
-A TPU pod slice spans multiple hosts, each seeing only its local chips;
-JAX's runtime links them into one global device set via
+A job that spans several hosts sees only each host's local GPUs per
+process; JAX's runtime links them into one global device set via
 ``jax.distributed.initialize``. This module wraps that bring-up with the
 conventions the rest of :mod:`proxmin_tpu.parallel` assumes (global
 meshes from ``jax.devices()``, pixel-axis sharding) and makes it
 idempotent, so library code and user scripts can call it unconditionally.
 
 The reference is single-process only (SURVEY.md §5: no distributed
-communication of any kind); this is new TPU-native surface. See
-``docs/SERVING.md`` ("Multi-process / multi-host meshes") for the full
-recipe including per-process data loading.
+communication of any kind). See ``docs/SERVING.md`` ("Multi-process /
+multi-host meshes") for the full recipe including per-process data
+loading.
 """
 
 from typing import NamedTuple
@@ -31,19 +31,18 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None, local_device_ids=None):
     """Initialize JAX's multi-process runtime (idempotent).
 
-    On TPU pods (and most managed environments: GKE, SLURM) all
-    arguments auto-detect from the environment — call with none. For
-    manual bring-up pass ``coordinator_address`` (``"host:port"`` of
-    process 0), ``num_processes`` and this process's ``process_id``
-    (reference: none — the reference is single-process NumPy).
+    In managed environments that JAX recognizes (e.g. SLURM) all
+    arguments auto-detect from the environment — call with none.
+    Elsewhere pass ``coordinator_address`` (``"host:port"`` of process
+    0), ``num_processes`` and this process's ``process_id`` (reference:
+    none — the reference is single-process NumPy).
 
     After initialization, ``jax.devices()`` returns the GLOBAL device
-    set, so :func:`~proxmin_tpu.parallel.make_mesh` builds pod-wide
-    meshes unchanged; give the mesh a leading ``"dcn"`` axis across
-    slices and pass ``data_axis=("dcn", "data")`` to
-    :func:`~proxmin_tpu.parallel.shard_nmf_problem` for the standard
-    multi-slice layout (pixel shards split across slices first, ICI
-    within a slice second).
+    set, so :func:`~proxmin_tpu.parallel.make_mesh` builds job-wide
+    meshes unchanged; give the mesh a leading ``"host"`` axis and pass
+    ``data_axis=("host", "data")`` to
+    :func:`~proxmin_tpu.parallel.shard_nmf_problem` to split the pixel
+    shards across hosts first and within a host second.
 
     Safe to call when already initialized, and a no-op single-process
     fallback when nothing to connect to is configured (no arguments and
@@ -85,7 +84,7 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
             # local backend. Everything else re-raises, including
             # bring-up FAILURES on an env-configured cluster
             # (coordinator timeout, unreachable host): swallowing those
-            # would silently degrade a pod job to per-host
+            # would silently degrade a multi-host job to per-host
             # single-process solves with no error anywhere.
             #
             # Case (b) has no public structural probe, so it falls back

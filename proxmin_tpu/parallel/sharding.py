@@ -12,8 +12,8 @@ Two complementary paths:
   build the training step with ``shard_map`` and hand-written collectives
   (the scaling-book recipe), which pins the communication pattern:
 
-      D_l      = W_l * (A S_l - Y_l)            local (MXU)
-      grad_A   = psum_data(D_l S_l^T)           one (C,K) all-reduce on ICI
+      D_l      = W_l * (A S_l - Y_l)            local
+      grad_A   = psum_data(D_l S_l^T)           one (C,K) all-reduce
       grad_S_l = A^T D_l                        local
       ||S||^2  = lambda_max(psum_data(S_l S_l^T))   K×K, replicated
       ||A||^2  = lambda_max(A^T A)              local (A replicated)
@@ -23,8 +23,10 @@ Two complementary paths:
   TP×DP. Convergence scalars are psum'd so every shard agrees and the
   while-loop condition stays consistent device-side.
 
-No NCCL/MPI equivalents anywhere: collectives are XLA's, laid out by the
-mesh (reference has no distribution at all — SURVEY.md §2 checklist).
+No hand-written NCCL/MPI calls: collectives are XLA's (NCCL on GPUs),
+laid out by the mesh, which follows the algorithm alone — every GPU of a
+host reaches every other at the same rate (reference has no distribution
+at all — SURVEY.md §2 checklist).
 """
 
 import logging
@@ -78,7 +80,7 @@ def hlo_collectives(hlo_text):
     and assert the pattern you designed for — e.g. for the pixel-
     sharded NMF solves, nothing but small all-reduces (the (C,K)
     gradient contraction, Grams, and convergence scalars; reference
-    anchor ``/root/reference/proxmin/nmf.py:39-41``).
+    anchor ``proxmin/nmf.py:39-41``).
     """
     global _COLLECTIVE_RE
     if _COLLECTIVE_RE is None:
@@ -126,9 +128,9 @@ def make_mesh(shape=None, axis_names=None, devices=None):
 
 def _axis_size(mesh, axis):
     """Device count along one mesh axis or a tuple of axes (tuples give
-    multi-level sharding, e.g. ``("dcn", "data")`` for the standard
-    multi-slice layout: pixel shards split across DCN slices first, ICI
-    within a slice second)."""
+    multi-level sharding, e.g. ``("host", "data")`` for the standard
+    multi-host layout: pixel shards split across hosts first, within a
+    host second)."""
     if axis is None:
         return 1
     if isinstance(axis, (tuple, list)):
@@ -142,7 +144,7 @@ def shard_nmf_problem(mesh, Y, A, S, W=None, data_axis="data",
     A replicated (or channel-sharded over ``model_axis``).
 
     ``data_axis`` may be a tuple of mesh axes for multi-level sharding
-    (e.g. ``("dcn", "data")`` across pod slices).
+    (e.g. ``("host", "data")`` across hosts).
 
     Returns ``(Y, A, S, W)`` as device arrays with NamedShardings; the
     ordinary solvers then run sharded (auto-SPMD path).
@@ -911,13 +913,14 @@ def nmf_pgm_sharded(
     iterations (0.9 safety factor, like ``nmf(step_stride=...)``) — on
     weighted problems the bounds cost ~50 collective-completed passes
     per evaluation, so striding them matters even more when each pass
-    also rides ICI. ``step_adapt=True`` grows the refresh interval
+    also crosses devices. ``step_adapt=True`` grows the refresh interval
     in-carry (the ApproximateCache rule, ``utils.grow_stride``) — the
     interval is derived from psum-replicated step scalars, so every
     shard takes identical segment lengths and the collectives inside
     the refresh stay collective-safe.
 
-    ``state=`` is the exact warm restart for preempted pod solves:
+    ``state=`` is the exact warm restart for preempted multi-device
+    solves:
     pass a previous call's ``.state`` (same weighting / stride
     configuration) together with its final iterates and the
     continuation reproduces the uninterrupted trajectory exactly —

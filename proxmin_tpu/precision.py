@@ -1,20 +1,16 @@
 """Matmul-precision policy shared by every solver driver and engine.
 
-TPU MXUs multiply in bfloat16 passes; XLA's DEFAULT f32 matmul is ONE
-pass (~3 decimal digits of mantissa), which puts a noise floor on the
-iterate movement ABOVE the reference stopping tolerances: measured on
-v5e, the reference unmixing-style problem (C=16, K=4, N=512,
-``prox_unity_plus`` on A) converges in 1794 iterations at
-``e_rel=1e-4`` on CPU/f32 — identical to the NumPy reference
-(``/root/reference/proxmin/algorithms.py:130-133`` fixed-point rule) —
-but NEVER converges on TPU under default precision (20000 iterations,
-143x the wall-clock). With ``precision='highest'`` the TPU run
-converges in exactly the same 1794 iterations. The public entry points
-(`pgm`/`adaprox`/`admm`/`sdmm`/`bsdmm`, `nmf`, the fused engines, the
-functional makers, the AOT exporters, the sharded whole-solve)
-therefore trace their compiled programs under this policy. The NMF
-problem is HBM-bound at every benchmarked shape, so the extra MXU
-passes are free (see docs/BENCHMARKS.md "Matmul precision").
+On an NVIDIA GPU a float32 matmul may run in reduced precision (TF32
+keeps about three decimal digits) unless told otherwise, and that puts a
+noise floor on the iterate movement near the reference stopping
+tolerances. The reference unmixing-style problem (C=16, K=4, N=512,
+``prox_unity_plus`` on A, ``e_rel=1e-4``; ``tests/test_precision.py``)
+converges in 1794 iterations on the CPU in f32 — identical to the NumPy
+reference's fixed-point rule (reference ``algorithms.py:130-133``). The
+public entry points (`pgm`/`adaprox`/`admm`/`sdmm`/`bsdmm`, `nmf`, the
+fused engines, the functional makers, the AOT exporters, the sharded
+whole-solve) therefore trace their compiled programs under a 'highest'
+policy, with the per-dot exceptions below.
 
 This lives in its own module (not ``utils``) so ``linop`` — which
 ``utils`` imports — can use the policy without a circular import.
@@ -27,31 +23,26 @@ import jax
 _MATMUL_PRECISION = "highest"
 
 # Per-dot annotations for the NMF data path (explicit ``precision=``
-# always overrides the ambient policy). The error analysis behind the
-# split, confirmed by measurement (r5 mixed-precision sweep,
-# /tmp-protocol recorded in benchmarks/results_r5.json):
+# always overrides the ambient policy). Measured on an H100
+# (chip_smoke.py, phases (d) and (e)):
 #
 # - The K-axis product ``A @ S`` inside the residual is
-#   ABSOLUTE-error-critical: one bf16 pass rounds A and S themselves,
-#   so the residual carries a noise floor ~eps_bf16 * |A S| that does
-#   NOT decay as the gradient does — it is exactly what stalls the
-#   fixed-point test. HIGH (bf16x3) restores f32-grade products;
-#   measured convergence is identical to HIGHEST (706 vs 706
-#   iterations) at 0.114 vs 0.136 ms/iter on the v5e flagship.
+#   ABSOLUTE-error-critical: a reduced-precision product rounds A and S
+#   themselves, so the residual carries a noise floor ~eps * |A S| that
+#   does not decay as the gradient does. At HIGH the unmixing problem
+#   above converged in 2021 iterations instead of 1794; at HIGHEST in
+#   1794, the CPU count. With K this small its FLOPs cost nothing.
 # - Pixel-axis contractions (``D S^T``, ``A^T D``, ``S S^T`` Grams,
-#   weighted power-iteration matvecs) are RELATIVE-error ops: their
-#   bf16-pass error is proportional to the operand magnitudes, which
-#   shrink with the gradient/are protected by the steppers' 0.9 safety
-#   margins. DEFAULT keeps them on the fast single-pass MXU path
-#   (measured: grads at DEFAULT converge in the same iteration count
-#   as HIGHEST, 706 vs 700).
+#   weighted power-iteration matvecs) are RELATIVE-error ops: their error
+#   is proportional to the operand magnitudes, which shrink with the
+#   gradient or are covered by the steppers' 0.9 safety margins. They
+#   keep the platform DEFAULT: the unmixing problem converged in 1794
+#   iterations either way, while HIGHEST made the XLA engine's flagship
+#   solves 1.3-1.9x slower (weighted PGM 0.24 -> 0.46 ms/iter).
 # - Tiny Grams (K x K, C x K) cost nothing at HIGHEST.
 #
-# Mosaic (Pallas) rejects Precision.HIGH, so kernels use HIGHEST for
-# the residual dot — per-tile the operands are VMEM-resident and the
-# extra passes are MXU-only (no HBM cost).
-RESIDUAL_PRECISION = jax.lax.Precision.HIGH
-KERNEL_RESIDUAL_PRECISION = jax.lax.Precision.HIGHEST
+# The fused kernels compute every product as exact f32 multiply-adds.
+RESIDUAL_PRECISION = jax.lax.Precision.HIGHEST
 STREAM_PRECISION = jax.lax.Precision.DEFAULT
 TINY_PRECISION = jax.lax.Precision.HIGHEST
 
@@ -62,8 +53,8 @@ def set_matmul_precision(precision):
     ``precision`` is any value accepted by
     ``jax.default_matmul_precision`` ('default' | 'high' | 'highest'),
     or ``None`` to leave JAX's ambient setting untouched (opt back into
-    the platform default, e.g. to trade convergence accuracy for MXU
-    throughput on compute-bound custom problems). Returns the previous
+    the platform default, e.g. to trade convergence accuracy for
+    tensor-core throughput on compute-bound custom problems). Returns the previous
     policy. Changing the policy re-specializes the compiled drivers
     automatically (the precision config participates in the jit cache
     key)."""

@@ -1,7 +1,7 @@
 """AdaProx — adaptive proximal gradient (Adam family) with prox sub-iterations.
 
-TPU-native re-design of the reference ``adaprox`` (``/root/reference/
-proxmin/algorithms.py:147-423``; Melchior, Joseph & Moolekamp Algorithm 1,
+accelerator-native re-design of the reference ``adaprox``
+(``proxmin/algorithms.py:147-423``; Melchior, Joseph & Moolekamp Algorithm 1,
 arXiv:1910.10094): six adaptive schemes (Adam, NAdam, AMSGrad, PAdam,
 AdamX, RAdam) expressed as pure Φ/Ψ functions over the moment state, with
 a **nested** ``lax.while_loop`` solving the scaled proximal problem per
@@ -413,7 +413,7 @@ def adaprox(
     :mod:`proxmin_tpu.checkpoint`. No reference analogue.
 
     ``grad=None`` with ``f=<smooth function>`` differentiates ``f`` via
-    ``jax.grad`` (the TPU-native successor of the reference's autograd
+    ``jax.grad`` (the accelerator-native successor of the reference's autograd
     compatibility).
 
     ``separable_prox``: for convex elementwise proxs the scaled proximal
@@ -433,10 +433,8 @@ def adaprox(
     arrays in reduced precision in the solver carry: the EMA/bias math
     still computes in the iterate dtype (cast up per iteration, down on
     store). This is a CAPACITY option — moment memory halves for
-    problems near the HBM limit; on v5e it measures slightly SLOWER
-    than f32 (0.26 vs 0.19 ms/iter at the flagship: the cast VPU work
-    exceeds the bandwidth saved, same pattern as bf16 ``store_dtype``
-    — see the AdaProx roofline in ``docs/BENCHMARKS.md``). Moment EMAs
+    problems near the device's memory limit; the casts are extra passes,
+    so it need not be faster than f32. Moment EMAs
     carry bf16 rounding (~3 decimal digits); iterates/convergence tests
     stay full precision. Default ``None`` = iterate dtype (parity).
 
@@ -576,8 +574,7 @@ def adaprox(
                 cond = make_adaprox_cond(check_convergence, max_iter)
                 return jax.lax.while_loop(cond, body, state)
 
-            # not donated: donation pins the carry to HBM buffers and
-            # defeats VMEM residency (2.6x slower on the pgm driver)
+            # not donated, like the pgm driver
             return stepper, jax.jit(run)
         return stepper, jax.jit(lambda s, leaves: make_parts(leaves)[0](s))
 
@@ -617,7 +614,7 @@ def adaprox(
                 break
 
     # one batched device->host fetch (separate transfers pay one round
-    # trip each on remote-dispatch backends)
+    # trip each)
     it_h, sub_h, div_h, conv_h = jax.device_get(
         (state.it, state.sub_iters, state.diverged, state.converged)
     )

@@ -1,7 +1,7 @@
 """Linearized ADMM and SDMM — jit-compiled while-loop drivers.
 
-TPU-native re-design of the reference ``admm`` / ``sdmm``
-(``/root/reference/proxmin/algorithms.py:426-650``; Moolekamp & Melchior
+accelerator-native re-design of the reference ``admm`` / ``sdmm``
+(``proxmin/algorithms.py:426-650``; Moolekamp & Melchior
 Algorithms 1-2, arXiv:1708.09066; Parikh & Boyd 2014 linearized ADMM):
 two-prox splitting with a linear operator inside g, extended to M
 simultaneous constraints, with Boyd (2011) §3.3.1 primal/dual residual
@@ -411,8 +411,7 @@ def _sdmm_core(
                 state = init_state(x, init_zu=init_zu_l, resume=resume)
                 return jax.lax.while_loop(_cond, body, state)
 
-            # not donated: donation pins the carry to HBM buffers and
-            # defeats VMEM residency (2.6x slower on the pgm driver)
+            # not donated, like the pgm driver
             compiled = jax.jit(run)
         else:
             compiled = jax.jit(lambda s, leaves: make_body(leaves)[0](s))
@@ -507,8 +506,7 @@ def admm(
         adapt_step=adapt_step, resume=state,
     )
 
-    # one batched device->host fetch (round trips are expensive on
-    # remote-dispatch backends)
+    # one batched device->host fetch (each round trip costs a sync)
     conv_h, it_h, err_h, slack_h, tot_h, tot0_h, div_h = jax.device_get(
         (state.converged, state.it, state.errors, state.slack,
          state.total_it, state.total_it0, state.diverged)

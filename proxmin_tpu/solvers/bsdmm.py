@@ -1,6 +1,6 @@
 """Block-Simultaneous Method of Multipliers (bSDMM) — jit-compiled driver.
 
-TPU-native re-design of the reference ``bsdmm`` (``/root/reference/proxmin/
+accelerator-native re-design of the reference ``bsdmm`` (``proxmin/
 algorithms.py:653-850``; Moolekamp & Melchior Algorithm 3,
 arXiv:1708.09066): linearized SDMM extended to N variable blocks with a
 Gauss–Seidel sweep in ``update_order``, each block carrying its own list of
@@ -587,8 +587,7 @@ def bsdmm(
                 state = init_state(x, init_zu=init_zu_l, resume=resume)
                 return loop(state)
 
-            # not donated: donation pins the carry to HBM buffers and
-            # defeats VMEM residency (2.6x slower on the pgm driver)
+            # not donated, like the pgm driver
             compiled = jax.jit(run)
         else:
             compiled = jax.jit(lambda s, leaves: make_body(leaves)[0](s))
@@ -613,8 +612,7 @@ def bsdmm(
                 break
             state = compiled(state, data_leaves)
 
-    # one batched device->host fetch (round trips are expensive on
-    # remote-dispatch backends)
+    # one batched device->host fetch (each round trip costs a sync)
     it_h, it0_h, conv_h, div_h = jax.device_get(
         (state.it, state.it0, state.converged, state.diverged))
     iterations = int(it_h) - int(it0_h)

@@ -1,6 +1,6 @@
 """Shared infrastructure for the solver drivers.
 
-All solvers follow the same TPU-native pattern:
+All solvers follow the same accelerator-native pattern:
 
 * **state pytree** — every mutable quantity of the reference's Python loop
   (iterate, momenta, duals, slack, iteration counter, convergence flags)
@@ -307,8 +307,7 @@ def split_partial_data(fn, min_bytes=1 << 20):
 
     Tracing a solver body embeds every closure-captured array into the
     lowered module as a literal constant — compile time then scales
-    with the DATA size, and remote-compile transports reject modules
-    past ~100 MB outright. ``jax.closure_convert`` cannot help (concrete
+    with the DATA size. ``jax.closure_convert`` cannot help (concrete
     arrays are "known" to partial_eval and stay inline). But the
     project idiom binds data with ``functools.partial`` (e.g. ``nmf``'s
     ``partial(grad_likelihood, Y=Y, W=W)``), whose bound values are
@@ -463,7 +462,7 @@ _GRAD_FROM_F_MAXSIZE = 32
 
 def grad_from_f(f, n_blocks):
     """Derive a multi-block gradient from the smooth function itself via
-    ``jax.grad`` — the TPU-native replacement for the reference's
+    ``jax.grad`` — the accelerator-native replacement for the reference's
     autograd compatibility (``README.md:33``): users pass ``f`` and the
     solver differentiates it.
 

@@ -1,6 +1,6 @@
 """Proximal Gradient Method (ISTA / FISTA) — jit-compiled while-loop driver.
 
-TPU-native re-design of the reference ``pgm`` (``/root/reference/proxmin/
+accelerator-native re-design of the reference ``pgm`` (``proxmin/
 algorithms.py:12-144``): forward-backward splitting with multi-block
 coordinate descent (Xu & Yin 2015), optional Nesterov acceleration
 (Beck & Teboulle 2009 FISTA) and Beck–Teboulle backtracking line search,
@@ -362,9 +362,8 @@ def _run_segmented(state, grad, stepper, prox, e_rel, accelerated,
     inside the body (refreshes happen at the same ``it`` from the same
     extrapolated iterate), but the cond and the stepper state (e.g. the
     28 MB warm-start power iterate of ``nmf.WeightedPGMStepper``) stay
-    OUT of the hot inner carry — measured ~2x faster at the weighted-NMF
-    flagship shape (0.45 -> 0.24 ms/iter), where the per-iteration cond
-    broke gradient/prox fusion and copied the stepper state every
+    OUT of the hot inner carry: a per-iteration cond breaks
+    gradient/prox fusion and copies the stepper state every
     iteration.
 
     Adaptive steppers (``stepper.adapt``) carry a DYNAMIC refresh
@@ -380,8 +379,8 @@ def _run_segmented(state, grad, stepper, prox, e_rel, accelerated,
     and with the refresh unconditional: wrapping the refresh in a
     ``lax.cond`` instead (the obvious alternative) threads the big
     stepper state through a conditional and re-creates the
-    staged-copies regression described below (measured +0.12 ms/iter
-    at the weighted flagship — the whole point of segmented mode)."""
+    staged copies described below — the whole point of segmented
+    mode."""
 
     def go(st):
         return _keep_going(st, max_iter)
@@ -391,10 +390,8 @@ def _run_segmented(state, grad, stepper, prox, e_rel, accelerated,
 
         The stepper state (e.g. WeightedPGMStepper's 28 MB warm-start
         iterate) is loop-invariant inside the segment — keep it OUT of
-        the inner carry: with it in, XLA's memory-space assignment
-        overflows VMEM and staged the S iterate HBM<->VMEM with two
-        full-size copies per iteration (measured +0.1 ms/iter at the
-        weighted flagship)."""
+        the inner carry, so the loop does not copy it every
+        iteration."""
         body = _make_pgm_body(grad, _FrozenStepper(steps), prox, e_rel,
                               accelerated, backtracking, f, trace=trace,
                               restart=restart)
@@ -476,7 +473,7 @@ def pgm(
             available as ``result.x``.
         grad: gradient of the smooth part, ``grad(*X) -> dX`` (tuple for
             multi-block). ``None`` differentiates ``f`` via ``jax.grad``
-            (requires ``f``; the TPU-native successor of the reference's
+            (requires ``f``; the accelerator-native successor of the reference's
             autograd compatibility, reference ``README.md:33``).
         step: step size(s); should be < 2/L with L the Lipschitz constant.
         prox: proximal operator(s) ``prox(X, step) -> X``; None = identity.
@@ -524,7 +521,7 @@ def pgm(
     e_rel = normalize_per_block(e_rel, n)
     if grad is None:
         # autodiff convenience: differentiate the smooth function itself
-        # (the TPU-native successor of the reference's autograd
+        # (the accelerator-native successor of the reference's autograd
         # compatibility, README.md:33)
         assert f is not None, "grad=None requires f"
         from .common import grad_from_f
@@ -583,16 +580,13 @@ def pgm(
             return body, g
 
         if callback is None:
-            # NOT donated: donating the carry pins the loop state to the
-            # caller's HBM buffers and defeats VMEM residency of the
-            # working set — measured 2.6x slower at the flagship shape.
-            # The final gradient is computed INSIDE the executable (one
-            # eval after the loop; see the deviation note below) —
-            # eagerly it would pay one remote compile per op at large
-            # shapes.
-            # the initial state is built INSIDE the executable: building
-            # it eagerly dispatches ~a dozen host->device ops per solve
-            # (~150 ms fixed cost per call on a remote-dispatch backend)
+            # not donated (whether donation pays on the GPU is an open
+            # perf question). The final gradient is computed INSIDE the
+            # executable (one eval after the loop; see the deviation
+            # note below) — eagerly it would compile one op at a time.
+            # The initial state is built INSIDE the executable too:
+            # building it eagerly dispatches ~a dozen host->device ops
+            # per solve
             @jax.jit
             def run(x, leaves, resume):
                 g, st, ff, pr = _rebuild(leaves)
@@ -649,7 +643,7 @@ def pgm(
         G_fin = final_grad(state, data_leaves)
 
     # one batched device->host fetch (separate int()/np.asarray() calls
-    # pay one transfer round trip EACH on remote-dispatch backends)
+    # pay one transfer round trip EACH)
     it_h, conv_h, div_h = jax.device_get(
         (state.it, state.converged, state.diverged)
     )

@@ -1,14 +1,14 @@
 """Special functions needed by the proximal operator library.
 
-The reference implementation (``/root/reference/proxmin/operators.py:174``)
+The reference implementation (``proxmin/operators.py:174``)
 relies on ``scipy.special.lambertw`` for the max-entropy prox. There is no
 Lambert-W in ``jax.scipy``, so we provide a jit/grad-compatible one here.
 
-Design note (TPU): the operators only ever need ``W(exp(t))`` for real ``t``
+Design note: the operators only ever need ``W(exp(t))`` for real ``t``
 (the prox argument is ``exp(X/gamma - 1)/gamma``).  Computing ``W(exp(t))``
 directly — i.e. solving ``w + log(w) = t`` — avoids overflow of ``exp(t)``
-for large ``t`` and keeps everything in vectorized elementwise math on the
-VPU with a fixed iteration count (XLA-friendly: no data-dependent loops).
+for large ``t`` and keeps everything in vectorized elementwise math with a
+fixed iteration count (XLA-friendly: no data-dependent loops).
 """
 
 import jax

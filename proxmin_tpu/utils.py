@@ -1,6 +1,6 @@
 """Numerics core: norms, convergence tests, accelerators, steppers, callbacks.
 
-TPU-native re-design of ``/root/reference/proxmin/utils.py``. Everything on
+accelerator-native re-design of ``proxmin/utils.py``. Everything on
 the hot path is a pure function of explicit state so it composes with
 ``jax.jit`` / ``lax.while_loop`` / ``pjit``:
 
@@ -415,7 +415,7 @@ class BarzilaiBorweinStepper:
 def grow_stride(stride, old_steps, new_steps, budget, max_stride,
                 first=False):
     """The reference :class:`ApproximateCache`'s stride-growth rule
-    (``/root/reference/proxmin/utils.py:176-186``) as a pure function
+    (``proxmin/utils.py:176-186``) as a pure function
     over traced values, plus a shrink-back branch the reference lacks:
 
     * drift positive but below ``budget`` (= slack/2): grow the refresh

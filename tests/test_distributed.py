@@ -7,7 +7,7 @@ each), build a global 2-device mesh, run a global psum, a sharded PGM-NMF
 training step (pixel-sharded Y/S, replicated A, psum'd grad_A), and
 the WHOLE-SOLVE explicit-collective path (nmf_pgm_sharded) checked
 against a process-local single-device solve of the reconstructed
-global problem — the single-host stand-in for a TPU pod slice's
+global problem — the single-host stand-in for a multi-host job's
 per-host bring-up.
 """
 
@@ -100,7 +100,7 @@ def test_dryrun_multichip_device_counts(n):
 def test_initialize_distributed_reraises_configured_failures(monkeypatch):
     """A bring-up FAILURE on a configured cluster must re-raise — only
     the benign 'nothing configured' case falls back to single-process
-    (review finding: swallowing it silently degrades pod jobs to
+    (review finding: swallowing it silently degrades multi-host jobs to
     per-host solves)."""
     import jax
     from proxmin_tpu.parallel import initialize_distributed

@@ -1,11 +1,9 @@
-"""CI gate for the engine-equivalence contract (VERDICT r4 #1).
+"""CI gate for the engine-equivalence contract.
 
 ``engine='auto'`` promises: same tolerance => same converged quality,
 possibly a different path (the reference's fixed-point stopping rule,
-``/root/reference/proxmin/algorithms.py:130-133``). The TPU-scale study
-lives in ``benchmarks/engine_equivalence.py`` (distributions recorded
-in ``benchmarks/results_engine_equiv.json`` / docs/BENCHMARKS.md); this
-test enforces the same ACCEPTANCE bound at CPU scale — real engines,
+``proxmin/algorithms.py:130-133``). The device-scale study lives in
+``benchmarks/engine_equivalence.py``; this test enforces the same ACCEPTANCE bound at CPU scale — real engines,
 interpret-mode kernels — on every CI run, so an engine change that
 shifts converged quality or iterations-to-tolerance beyond the bound
 fails loudly.

@@ -90,8 +90,9 @@ def test_fused_adam_unmixing_example(argv, capsys):
                    run_name="__main__")
     out = capsys.readouterr().out
     # the script asserts its own loss drops; the continuation line
-    # proves the M/V warm start improved on the first segment
-    assert "fused adam" in out and "continued" in out
+    # proves the M/V warm start improved on the first segment (on the
+    # XLA engine here: the fused one compiles for CUDA GPUs only)
+    assert "adam on xla" in out and "continued" in out
 
 
 def test_preemptible_resume_example(argv, capsys):

@@ -1,6 +1,6 @@
 """FunctionOperator: matrix-free linear operators for the ADMM family.
 
-TPU-native replacement for the reference's scipy.sparse operator support
+accelerator-native replacement for the reference's scipy.sparse operator support
 (``/root/reference/proxmin/utils.py:28-35,53-60``) — the operator's
 *action* is supplied as jittable callables, so structured constraints
 (TV/finite differences here) never materialize a dense p×p matrix.

@@ -1,145 +1,210 @@
-"""Parity tests for the Pallas kernels against the jnp reference path
-(interpreter mode on CPU; the same code compiles on TPU)."""
+"""Parity tests for the fused Pallas kernels against the jnp reference
+path. Here they run in Pallas's interpreter (the autouse fixture in
+conftest.py); the ``gpu``-marked tests compile them for a CUDA GPU."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
 import proxmin_tpu as pt
 import proxmin_tpu.operators as op
-from proxmin_tpu.ops import (
-    fused_nmf_grad,
-    prox_hard_pallas,
-    prox_plus_pallas,
-    prox_soft_pallas,
-    prox_unity_pallas,
+from proxmin_tpu import nmf as nmf_mod
+from proxmin_tpu.nmf import log_likelihood
+from proxmin_tpu.ops import nmf_kernels
+from proxmin_tpu.ops.nmf_kernels import (
+    fused_nmf_adaprox_step,
+    fused_nmf_pgm_step,
+    pixel_tile,
 )
-from proxmin_tpu.nmf import grad_likelihood, log_likelihood
 
 
 @pytest.fixture
-def X(rng):
-    return jnp.asarray(rng.normal(size=(5, 300)).astype(np.float32))
+def fake_cuda(monkeypatch):
+    """Routing sees a CUDA GPU; the kernels still run interpreted."""
+    monkeypatch.setattr(nmf_mod, "cuda_available", lambda: True)
 
 
-def test_prox_plus_parity(X):
-    np.testing.assert_array_equal(
-        np.asarray(prox_plus_pallas(X, 0.5)),
-        np.asarray(op.prox_plus(X, 0.5)),
-    )
+def _problem(rng, C, K, N, weighted):
+    A = rng.random((C, K)).astype(np.float32)
+    S = rng.random((K, N)).astype(np.float32)
+    Y = rng.random((C, N)).astype(np.float32)
+    W = (0.5 + rng.random((C, N))).astype(np.float32) if weighted else None
+    return A, S, Y, W
 
 
-@pytest.mark.parametrize("type_", ["relative", "absolute"])
-def test_prox_soft_parity(X, type_):
-    np.testing.assert_allclose(
-        np.asarray(prox_soft_pallas(X, 0.5, thresh=0.3, type=type_)),
-        np.asarray(op.prox_soft(X, 0.5, thresh=0.3, type=type_)),
-        atol=1e-7,
-    )
+# (C, K, N, tile): one ragged tile, two exact tiles, many tiles with a
+# ragged last one, the device-loop channel path (C > 16), and K = 1
+_TILINGS = [(5, 7, 100, 128), (5, 7, 256, 128), (5, 7, 1000, 128),
+            (20, 3, 300, 64), (3, 1, 70, 16)]
 
 
-def test_prox_hard_parity(X):
-    np.testing.assert_array_equal(
-        np.asarray(prox_hard_pallas(X, 0.5, thresh=0.3)),
-        np.asarray(op.prox_hard(X, 0.5, thresh=0.3)),
-    )
+def _check_pgm_step(rng, C, K, N, tile, weighted):
+    A, S, Y, W = _problem(rng, C, K, N, weighted)
+    sS = 0.05
+    gA, S_new, SSt, loss, dS_sq, nS_sq = fused_nmf_pgm_step(
+        A, S, Y, sS, W=W, tile_n=tile)
 
+    R = A @ S - Y
+    D = (W * R) if weighted else R
+    S_new_ref = np.maximum(S - sS * (A.T @ D), 0)
 
-@pytest.mark.parametrize("axis", [0, 1])
-def test_prox_unity_parity(rng, axis):
-    X = jnp.asarray((0.1 + rng.random((6, 200))).astype(np.float32))
-    np.testing.assert_allclose(
-        np.asarray(prox_unity_pallas(X, 0.5, axis=axis)),
-        np.asarray(op.prox_unity(X, 0.5, axis=axis)),
-        rtol=1e-6,
-    )
-
-
-def test_prox_odd_shapes(rng):
-    """Non-tile-aligned shapes round-trip through padding correctly."""
-    for shape in [(1, 7), (5, 129), (13, 1000), (8, 128)]:
-        X = jnp.asarray(rng.normal(size=shape).astype(np.float32))
-        np.testing.assert_array_equal(
-            np.asarray(prox_plus_pallas(X, 1.0)),
-            np.maximum(np.asarray(X), 0),
-        )
-
-
-@pytest.mark.parametrize("weighted", [False, True])
-def test_fused_nmf_grad_parity(rng, weighted):
-    C, K, N = 5, 7, 1000   # deliberately unaligned everywhere
-    A = jnp.asarray(rng.random((C, K)).astype(np.float32))
-    S = jnp.asarray(rng.random((K, N)).astype(np.float32))
-    Y = jnp.asarray(rng.random((C, N)).astype(np.float32))
-    W = jnp.asarray((0.5 + rng.random((C, N))).astype(np.float32)) \
-        if weighted else None
-
-    gA, gS, SSt, loss = fused_nmf_grad(A, S, Y, W=W, tile_n=256)
-
-    W_ref = W if weighted else 1
-    gA_ref, gS_ref = grad_likelihood(A, S, Y=Y, W=W_ref)
-    loss_ref = log_likelihood(A, S, Y=Y, W=W_ref)
-
-    np.testing.assert_allclose(np.asarray(gA), np.asarray(gA_ref),
+    assert S_new.shape == (K, N)
+    np.testing.assert_allclose(np.asarray(gA), D @ S.T, rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(S_new), S_new_ref,
+                               rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(SSt), S_new_ref @ S_new_ref.T,
                                rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(gS), np.asarray(gS_ref),
-                               rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(SSt), np.asarray(S @ S.T),
-                               rtol=2e-5)
-    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-4)
-
-
-def test_fused_nmf_grad_tile_divisible(rng):
-    """N an exact multiple of the tile: no padding path."""
-    C, K, N = 8, 8, 512
-    A = jnp.asarray(rng.random((C, K)).astype(np.float32))
-    S = jnp.asarray(rng.random((K, N)).astype(np.float32))
-    Y = jnp.asarray(rng.random((C, N)).astype(np.float32))
-    gA, gS, SSt, loss = fused_nmf_grad(A, S, Y, tile_n=128)
-    gA_ref, gS_ref = grad_likelihood(A, S, Y=Y)
-    np.testing.assert_allclose(np.asarray(gA), np.asarray(gA_ref), rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(gS), np.asarray(gS_ref),
-                               rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(float(loss), np.sum(D * R) / 2, rtol=1e-5)
+    np.testing.assert_allclose(float(dS_sq), np.sum((S_new_ref - S) ** 2),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(nS_sq), np.sum(S_new_ref ** 2),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_fused_pgm_step_parity(rng, weighted):
     """One fused kernel step == one hand-computed PGM S-side step."""
-    from proxmin_tpu.ops.nmf_kernels import (
-        fused_nmf_pgm_step, pad_nmf_problem,
-    )
+    _check_pgm_step(rng, 5, 7, 700, 256, weighted)
 
-    C, K, N = 5, 7, 700
-    A = rng.random((C, K)).astype(np.float32)
-    S = rng.random((K, N)).astype(np.float32)
-    Y = rng.random((C, N)).astype(np.float32)
-    W = (0.5 + rng.random((C, N))).astype(np.float32) if weighted else None
-    sS = 0.05
 
-    A_p, S_p, Y_p, W_p, dims, tile = pad_nmf_problem(A, S, Y, W, tile_n=256)
-    gA, S_new, SSt, loss, dS_sq, nS_sq = fused_nmf_pgm_step(
-        A_p, S_p, Y_p, sS, W=W_p, tile_n=tile, dims=dims
-    )
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("C,K,N,tile", _TILINGS)
+def test_fused_pgm_step_tilings(rng, C, K, N, tile, weighted):
+    """The per-tile partial sums, added up after the kernel, give the
+    whole-problem sums for any number of tiles and a ragged last tile."""
+    _check_pgm_step(rng, C, K, N, tile, weighted)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("C,K,N,tile,mdt", [
+    (5, 7, 1000, 128, jnp.float32), (20, 3, 300, 64, jnp.float32),
+    (5, 7, 300, 128, jnp.bfloat16)])
+def test_fused_adaprox_step_parity(rng, C, K, N, tile, mdt, weighted):
+    """One fused proximal-Adam step == the hand-computed S-side update."""
+    A, S, Y, W = _problem(rng, C, K, N, weighted)
+    M = rng.random((K, N)).astype(np.float32)
+    V = rng.random((K, N)).astype(np.float32)
+    M_in, V_in = jnp.asarray(M, mdt), jnp.asarray(V, mdt)
+    alpha = (0.1 * rng.random(K)).astype(np.float32)
+    b1, b2, t = 0.9, 0.999, 3
+    sc = np.array([b1, 1 / (1 - b1 ** t), 1 / (1 - b2 ** t)], np.float32)
+    gA, S1, M1, V1, rowsum, loss, dS_sq, nS_sq = fused_nmf_adaprox_step(
+        A, S, M_in, V_in, Y, alpha, sc, W=W, tile_n=tile)
 
     R = A @ S - Y
     D = (W * R) if weighted else R
-    gA_ref = D @ S.T
-    gS_ref = A.T @ D
-    S_new_ref = np.maximum(S - sS * gS_ref, 0)
+    gS = A.T @ D
+    M_ref = (1 - b1) * gS + b1 * np.asarray(M_in, np.float32)
+    V_ref = (1 - b2) * gS ** 2 + b2 * np.asarray(V_in, np.float32)
+    Psi = np.sqrt(V_ref * sc[2]) + 1e-8
+    S1_ref = np.maximum(S - alpha[:, None] * M_ref * sc[1] / Psi, 0)
+    rtol = 2e-5 if mdt == jnp.float32 else 1e-2
 
-    np.testing.assert_allclose(np.asarray(gA)[:C, :K], gA_ref, rtol=2e-4)
-    np.testing.assert_allclose(np.asarray(S_new)[:K, :N], S_new_ref,
-                               rtol=2e-4, atol=1e-5)
-    # padded region stays exactly zero
-    assert np.all(np.asarray(S_new)[K:, :] == 0)
-    assert np.all(np.asarray(S_new)[:, N:] == 0)
-    np.testing.assert_allclose(np.asarray(SSt)[:K, :K],
-                               S_new_ref @ S_new_ref.T, rtol=2e-4)
-    np.testing.assert_allclose(float(loss), np.sum(D * R) / 2, rtol=1e-4)
-    np.testing.assert_allclose(float(dS_sq), np.sum((S_new_ref - S) ** 2),
-                               rtol=1e-3)
-    np.testing.assert_allclose(float(nS_sq), np.sum(S_new_ref ** 2),
-                               rtol=1e-3)
+    assert M1.dtype == mdt and V1.dtype == mdt
+    np.testing.assert_allclose(np.asarray(gA), D @ S.T, rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(S1), S1_ref, rtol=2e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(M1, np.float32), M_ref,
+                               rtol=rtol, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(V1, np.float32), V_ref,
+                               rtol=rtol, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(rowsum), S1_ref.sum(axis=1),
+                               rtol=2e-5)
+    np.testing.assert_allclose(float(loss), np.sum(D * R) / 2, rtol=1e-5)
+    np.testing.assert_allclose(float(nS_sq), np.sum(S1_ref ** 2),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("K,N,tile_n,expected", [
+    (7, 1_000_000, None, 512),     # flagship: 4096 values per (8, tile)
+    (12, 47_500, None, 128),       # wide: shrunk until >= 264 programs
+    (7, 1000, None, 128),          # tiny: the 128 floor
+    (1, 10 ** 7, None, 2048),      # K = 1: the 2048 ceiling
+    (7, 1000, 64, 64),             # explicit override
+])
+def test_pixel_tile_rule(K, N, tile_n, expected):
+    assert pixel_tile(K, N, tile_n) == expected
+
+
+@pytest.mark.parametrize("tile_n", [100, 8])
+def test_pixel_tile_rejects_bad_override(tile_n):
+    with pytest.raises(ValueError, match="power of two"):
+        pixel_tile(7, 1000, tile_n)
+
+
+@pytest.mark.parametrize("kernel", ["pgm", "adaprox"])
+def test_compiled_kernel_raises_off_cuda(rng, kernel):
+    """No silent fallback: a compiled kernel call on the CPU raises, and
+    the interpreter runs only when asked for."""
+    A, S, Y, _ = _problem(rng, 3, 2, 64, False)
+    if kernel == "pgm":
+        call = lambda **kw: fused_nmf_pgm_step(A, S, Y, 0.1, **kw)
+    else:
+        M = np.zeros_like(S)
+        sc = np.ones(3, np.float32)
+        call = lambda **kw: fused_nmf_adaprox_step(
+            A, S, M, M, Y, np.ones(2, np.float32), sc, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(interpret=False)
+    call(interpret=True)      # asked for explicitly
+    call()                    # asked for by the suite's fixture
+
+
+def test_interpret_flag_defaults_off(rng, monkeypatch):
+    """Outside the test fixture, INTERPRET is off: a whole fused solve on
+    the CPU raises instead of running the interpreter."""
+    monkeypatch.setattr(nmf_kernels, "INTERPRET", False)
+    A, S, Y, _ = _problem(rng, 3, 2, 64, False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.nmf.nmf(Y, A, S, engine="pallas", max_iter=2)
+
+
+@pytest.mark.parametrize("C,K,N,wins", [
+    (5, 7, 1_000_000, True),       # flagship: kernel measured faster
+    (188, 12, 47_500, False),      # wide: kernel measured slower
+    (5, 7, 10_000, False),         # not measured: stays on xla
+])
+def test_fused_kernel_wins_measured_region(C, K, N, wins):
+    assert nmf_mod._fused_kernel_wins(C, K, N) is wins
+
+
+def test_auto_never_picks_kernel_off_cuda(rng, monkeypatch):
+    """engine='auto' inside the measured region still runs XLA on the
+    CPU — for pgm and adaprox alike."""
+    calls = []
+    for name in ("nmf_pgm_fused", "nmf_adaprox_fused"):
+        monkeypatch.setattr(nmf_mod, name,
+                            lambda *a, **k: calls.append(1))
+    monkeypatch.setattr(nmf_mod, "_KERNEL_MIN_N", 1)
+    A, S, Y, _ = _problem(rng, 5, 7, 256, False)
+    assert nmf_mod._fused_kernel_wins(5, 7, 256)
+    for alg in ("pgm", "adaprox"):
+        r = pt.nmf.nmf(Y, A.copy(), S.copy(), algorithm=alg,
+                       engine="auto", e_rel=0, max_iter=3)
+        assert r.iterations == 3
+    assert calls == []
+
+
+@pytest.mark.parametrize("kernel", ["pgm", "adaprox"])
+@pytest.mark.parametrize("C,K,N", [(5, 7, 1000), (40, 12, 300)])
+def test_kernels_lower_to_triton_for_cuda(rng, monkeypatch, kernel, C, K,
+                                          N):
+    """The compiled kernels (not the interpreter) lower to a Triton call
+    for CUDA — this catches primitives the Triton route cannot express
+    without a GPU at hand."""
+    monkeypatch.setattr(nmf_kernels, "cuda_available", lambda: True)
+    A, S, Y, W = _problem(rng, C, K, N, True)
+    if kernel == "pgm":
+        f = lambda A, S, Y, W: fused_nmf_pgm_step(
+            A, S, Y, 0.1, W=W, interpret=False,
+            prox_S=lambda x, s: op.prox_unity_plus(x, s, axis=0))
+    else:
+        f = lambda A, S, Y, W: fused_nmf_adaprox_step(
+            A, S, S, S, Y, jnp.ones(K), jnp.ones(3), W=W, interpret=False)
+    txt = jax.jit(f).trace(A, S, Y, W).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "xla.gpu.triton" in txt
 
 
 def test_fused_pgm_driver_matches_xla_path(rng):
@@ -284,10 +349,11 @@ def test_nmf_engine_auto(rng):
     assert np.isfinite(np.asarray(r_w.x[1])).all()
 
 
-def test_nmf_auto_with_pallas_kwargs(rng):
+def test_nmf_auto_with_pallas_kwargs(rng, monkeypatch):
     """Regression: pallas-only kwargs with engine='auto' force the pallas
-    engine (instead of crashing pgm with unexpected kwargs), and raise
-    clearly when the call is not pallas-compatible."""
+    engine on a CUDA GPU (instead of crashing pgm with unexpected
+    kwargs), raise elsewhere (auto never picks a kernel off CUDA), and
+    raise clearly when the call is not pallas-compatible."""
     import proxmin_tpu as pt
 
     C, K, N = 4, 3, 256
@@ -295,8 +361,13 @@ def test_nmf_auto_with_pallas_kwargs(rng):
     A0 = rng.random((C, K)).astype(np.float32)
     S0 = rng.random((K, N)).astype(np.float32)
 
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=5,
+                   engine="auto", tile_n=128)
+    monkeypatch.setattr(nmf_mod, "cuda_available", lambda: True)
     r = pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=5,
-                   engine="auto", tile_n=128)   # C < 64 but tile_n -> pallas
+                   engine="auto", tile_n=128)   # off-region but tile_n
+    assert r.state["kind"] == "nmf_pgm_fused"
     assert np.isfinite(np.asarray(r.x[1])).all()
 
     # adaprox + tile_n with a NON-separable prox cannot run the fused
@@ -310,14 +381,15 @@ def test_nmf_auto_with_pallas_kwargs(rng):
                                    type="absolute"))
 
 
-def test_nmf_auto_routes_reduced_moment_adaprox(rng, monkeypatch):
+def test_nmf_auto_routes_reduced_moment_adaprox(rng, monkeypatch,
+                                                fake_cuda):
     """engine='auto' routes adaprox to the fused kernel exactly in the
-    measured win region: reduced-precision moment_dtype (or explicit
-    tile_n); f32 stays on xla; non-separable proxs fall back to xla."""
+    measured win region (whatever the moment dtype) or on explicit
+    tile_n; outside it stays on xla; non-separable proxs fall back to
+    xla."""
     from functools import partial
 
     import proxmin_tpu as pt
-    from proxmin_tpu import nmf as nmf_mod
 
     C, K, N = 4, 3, 256
     Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
@@ -330,21 +402,26 @@ def test_nmf_auto_routes_reduced_moment_adaprox(rng, monkeypatch):
         nmf_mod, "nmf_adaprox_fused",
         lambda *a, **k: (calls.append(1), orig(*a, **k))[1])
 
-    # bf16 moments -> fused (the measured winner for this request)
+    # below the measured region -> xla
+    pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+               engine="auto", moment_dtype=jnp.bfloat16,
+               e_rel=0, max_iter=5)
+    assert calls == []
+
+    # explicit tile_n -> fused even outside the region
+    pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
+               engine="auto", tile_n=128, e_rel=0, max_iter=5)
+    assert calls == [1]
+
+    # inside the region -> fused, with reduced moments or not
+    monkeypatch.setattr(nmf_mod, "_KERNEL_MIN_N", 1)
     r = pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
                    engine="auto", moment_dtype=jnp.bfloat16,
                    e_rel=0, max_iter=5)
-    assert calls == [1] and np.isfinite(np.asarray(r.x[1])).all()
-
-    # f32 moments (default) -> xla (fused f32 measured slower)
+    assert calls == [1, 1] and np.isfinite(np.asarray(r.x[1])).all()
     pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
                engine="auto", e_rel=0, max_iter=5)
-    assert calls == [1]
-
-    # explicit tile_n -> fused even without reduced moments
-    pt.nmf.nmf(Y, A0.copy(), S0.copy(), algorithm="adaprox",
-               engine="auto", tile_n=128, e_rel=0, max_iter=5)
-    assert calls == [1, 1]
+    assert calls == [1, 1, 1]
 
     # non-separable prox: silently falls back to the xla driver (which
     # honors moment_dtype as the capacity option)
@@ -353,7 +430,7 @@ def test_nmf_auto_routes_reduced_moment_adaprox(rng, monkeypatch):
                     prox_S=partial(pt.operators.prox_soft, thresh=0.1,
                                    type="absolute"),
                     e_rel=0, max_iter=5)
-    assert calls == [1, 1] and np.isfinite(np.asarray(r4.x[1])).all()
+    assert calls == [1, 1, 1] and np.isfinite(np.asarray(r4.x[1])).all()
 
 
 def test_nmf_scalar_weights(rng):
@@ -441,41 +518,6 @@ def test_fused_weighted_masked_pixels(rng):
                      engine="pallas")
     assert np.isfinite(np.asarray(res.x[0])).all()
     assert np.isfinite(np.asarray(res.x[1])).all()
-
-
-def test_prox_kernels_f64_exact_in_interpret_mode(rng):
-    """x64 parity THROUGH the kernels (VERDICT r2 #10): f64 inputs keep
-    full precision in interpreter mode — results match the f64 jnp
-    operators bit-for-bit, beyond f32 representability."""
-    X = jnp.asarray(rng.normal(size=(5, 137)) * (1 + 1e-12))
-    assert X.dtype == jnp.float64   # conftest enables x64
-    np.testing.assert_array_equal(
-        np.asarray(prox_plus_pallas(X, 0.5)),
-        np.asarray(op.prox_plus(X, 0.5)),
-    )
-    np.testing.assert_array_equal(
-        np.asarray(prox_soft_pallas(X, 0.5, thresh=0.3)),
-        np.asarray(op.prox_soft(X, 0.5, thresh=0.3)),
-    )
-    np.testing.assert_array_equal(
-        np.asarray(prox_hard_pallas(X, 0.5, thresh=0.3)),
-        np.asarray(op.prox_hard(X, 0.5, thresh=0.3)),
-    )
-    Xp = jnp.asarray(0.1 + rng.random((6, 99)))
-    np.testing.assert_allclose(
-        np.asarray(prox_unity_pallas(Xp, 0.5)),
-        np.asarray(op.prox_unity(Xp, 0.5)),
-        rtol=1e-15,
-    )
-
-
-def test_prox_kernels_f64_raises_on_compiled_path(rng):
-    """On a real TPU (interpret=False) f64 must raise, not silently
-    round-trip through f32."""
-    X = jnp.asarray(rng.normal(size=(4, 64)))
-    assert X.dtype == jnp.float64
-    with pytest.raises(TypeError, match="float64"):
-        prox_plus_pallas(X, 0.5, interpret=False)
 
 
 # ---------------------------------------------------------------------------
@@ -827,7 +869,7 @@ def test_fused_weighted_pgm_bf16_storage(rng):
     assert r.iterations == 10
 
 
-def test_fused_adaprox_bf16_storage(rng):
+def test_fused_adaprox_bf16_storage(rng, fake_cuda):
     """bf16-stored S/Y (+ bf16 moments) in the fused proximal-Adam
     engine: comparable loss to the f32 store, close iterates at a short
     horizon, f32 outputs, and the nmf() route accepts the combination
@@ -924,7 +966,7 @@ def test_bf16_inputs_not_promoted_under_store_dtype(rng):
                                   np.asarray(n_b16.x[1]))
 
 
-def test_engine_auto_store_dtype_routing(rng):
+def test_engine_auto_store_dtype_routing(rng, fake_cuda):
     """Review findings (r4 late): engine='auto' routes a reduced
     store_dtype to the fused kernels — including weighted PGM (the only
     engine that can honor the capacity option) — while store_dtype=None
@@ -1007,47 +1049,10 @@ def test_fused_prox_safe_predicate():
     assert not _fused_prox_safe(partial(op.prox_soft, 0.5), "S")
 
 
-def test_weighted_fused_wins_measured_map():
-    """_weighted_fused_wins reproduces the r4 adapt-policy sweep's
-    winners (docs/BENCHMARKS.md table; the ~tie at C=16/N=1M is an
-    accepted boundary miss, excluded here)."""
-    from proxmin_tpu.nmf import _weighted_fused_wins as wins
-
-    assert not wins(5, 7, 500_000)        # xla 1.43x
-    assert not wins(5, 7, 750_000)        # xla 1.08x
-    assert wins(5, 7, 1_000_000)          # pallas 1.2-1.3x (flagship)
-    assert not wins(8, 7, 500_000)        # xla 1.51x
-    assert wins(8, 7, 1_000_000)          # pallas 1.19x
-    assert not wins(16, 8, 500_000)       # xla 1.07x
-    assert wins(16, 8, 2_000_000)         # pallas 1.49x
-    assert not wins(32, 12, 250_000)      # xla 1.16x
-    assert wins(32, 12, 1_000_000)        # pallas 1.15x
-    assert wins(48, 12, 250_000)          # pallas 1.21x
-    assert wins(64, 16, 250_000)          # pallas 1.69x
-    assert wins(128, 32, 125_000)         # pallas 1.30x
-
-
-def test_unweighted_fused_wins_measured_map():
-    """_unweighted_fused_wins reproduces the r4 unweighted sweeps:
-    C >= 64 always; below that, the residency cliff at ~200 MB naive
-    stream (ties at 150-176 MB route xla, costing <= ~4%)."""
-    from proxmin_tpu.nmf import _unweighted_fused_wins as wins
-
-    assert wins(64, 16, 250_000)          # pallas 1.15-1.47x
-    assert wins(128, 32, 125_000)
-    assert not wins(5, 7, 1_000_000)      # xla 1.29x (76 MB)
-    assert not wins(5, 7, 2_000_000)      # ~tie (152 MB) -> xla
-    assert wins(5, 7, 4_000_000)          # pallas 1.57x (304 MB)
-    assert not wins(16, 8, 1_000_000)     # xla 1.11x (128 MB)
-    assert wins(16, 8, 2_000_000)         # pallas 1.54x (256 MB)
-    assert not wins(8, 7, 2_000_000)      # ~tie (176 MB) -> xla
-
-
-def test_unweighted_auto_routes_fused_past_cliff(rng, monkeypatch):
-    """engine='auto' wiring for unweighted pgm now consults the
-    residency-cliff rule, not just C >= 64."""
-    from proxmin_tpu import nmf as nmf_mod
-
+def test_unweighted_auto_routes_fused_past_cliff(rng, monkeypatch,
+                                                fake_cuda):
+    """engine='auto' wiring for unweighted pgm consults the measured
+    region rule."""
     C, K, N = 4, 3, 256
     Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
     A0 = rng.random((C, K)).astype(np.float32)
@@ -1062,8 +1067,7 @@ def test_unweighted_auto_routes_fused_past_cliff(rng, monkeypatch):
     kw = dict(e_rel=0, max_iter=5, engine="auto")
     pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw)      # tiny: xla
     assert calls == []
-    monkeypatch.setattr(nmf_mod, "_unweighted_fused_wins",
-                        lambda *a: True)
+    monkeypatch.setattr(nmf_mod, "_fused_kernel_wins", lambda *a: True)
     r = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw)  # forced region
     assert calls == [1] and np.isfinite(np.asarray(r.x[1])).all()
     r_xla = pt.nmf.nmf(Y, A0.copy(), S0.copy(), e_rel=0, max_iter=5,
@@ -1073,14 +1077,13 @@ def test_unweighted_auto_routes_fused_past_cliff(rng, monkeypatch):
                                atol=2e-5)
 
 
-def test_weighted_auto_routes_fused_by_measured_region(rng, monkeypatch):
+def test_weighted_auto_routes_fused_by_measured_region(rng, monkeypatch,
+                                                       fake_cuda):
     """engine='auto' wiring for weighted strided/adaptive pgm: routes to
-    the fused engine exactly when _weighted_fused_wins says so, stays
+    the fused engine exactly when _fused_kernel_wins says so, stays
     on xla otherwise, and never fuses weighted solves without a
-    strided/adaptive policy (exact per-iteration refreshes measured
-    slower on either engine than strided xla)."""
-    from proxmin_tpu import nmf as nmf_mod
-
+    strided/adaptive policy (the fused runner's warm power iterate is
+    the strided policy's semantics)."""
     C, K, N = 4, 3, 256
     Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
     A0 = rng.random((C, K)).astype(np.float32)
@@ -1102,8 +1105,7 @@ def test_weighted_auto_routes_fused_by_measured_region(rng, monkeypatch):
     assert calls == []
 
     # force the region decision to True: strided/adaptive now fuse
-    monkeypatch.setattr(nmf_mod, "_weighted_fused_wins",
-                        lambda *a: True)
+    monkeypatch.setattr(nmf_mod, "_fused_kernel_wins", lambda *a: True)
     r_str = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw, step_stride=3)
     r_ad = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw, step_adapt=True)
     assert calls == [False, True]
@@ -1149,14 +1151,11 @@ def test_fused_unweighted_strided_matches_xla_strided(rng):
 
 
 def test_unweighted_auto_routes_strided_by_measured_region(rng,
-                                                           monkeypatch):
+                                                           monkeypatch,
+                                                           fake_cuda):
     """engine='auto' wiring for UNWEIGHTED strided/adaptive pgm: routes
-    by _unweighted_strided_fused_wins (the SAME region as the exact
-    engines' rule, measured separately — striding speeds both engines
-    up equally, so the residency cliff does not move), stays on xla
-    below the region."""
-    from proxmin_tpu import nmf as nmf_mod
-
+    by the same measured region as the exact engine, stays on xla below
+    the region."""
     C, K, N = 4, 3, 256
     Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
     A0 = rng.random((C, K)).astype(np.float32)
@@ -1176,8 +1175,7 @@ def test_unweighted_auto_routes_strided_by_measured_region(rng,
         assert np.isfinite(np.asarray(r.x[1])).all()
     assert calls == []
 
-    monkeypatch.setattr(nmf_mod, "_unweighted_strided_fused_wins",
-                        lambda *a: True)
+    monkeypatch.setattr(nmf_mod, "_fused_kernel_wins", lambda *a: True)
     r_str = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw, step_stride=3)
     r_ad = pt.nmf.nmf(Y, A0.copy(), S0.copy(), **kw, step_adapt=True)
     assert calls == [False, True]
@@ -1189,7 +1187,8 @@ def test_unweighted_auto_routes_strided_by_measured_region(rng,
     assert np.isfinite(np.asarray(r_ad.x[1])).all()
 
 
-def test_auto_prox_guard_blocks_pixel_coupled_prox(rng, monkeypatch):
+def test_auto_prox_guard_blocks_pixel_coupled_prox(rng, monkeypatch,
+                                                  fake_cuda):
     """Correctness hole closed (r4 late): a pixel-coupled prox_S (e.g.
     prox_unity(axis=1)) must keep engine='auto' off the fused kernel —
     tile-local application would silently normalize per tile — while a
@@ -1197,9 +1196,8 @@ def test_auto_prox_guard_blocks_pixel_coupled_prox(rng, monkeypatch):
     with an unknown prox raise instead of silently misrouting."""
     from functools import partial
 
-    from proxmin_tpu import nmf as nmf_mod
-
-    C, K, N = 64, 3, 256   # C >= 64: the unweighted auto-pallas region
+    C, K, N = 64, 3, 256
+    monkeypatch.setattr(nmf_mod, "_fused_kernel_wins", lambda *a: True)
     Y = (rng.random((C, K)) @ rng.random((K, N))).astype(np.float32)
     A0 = rng.random((C, K)).astype(np.float32)
     S0 = rng.random((K, N)).astype(np.float32)
@@ -1264,18 +1262,17 @@ def test_fused_divergence_detected_on_final_iteration(rng):
 
 
 # ---------------------------------------------------------------------------
-# Exhaustive tile-safety oracle for the auto-routing prox guard
-# (VERDICT r4 #8): every library prox x {A, S} x kwargs variant is
-# applied exactly the way the fused kernel would apply it (S: per
-# column tile on the row-padded factor, masked after; A: whole on the
-# zero-padded factor, where-masked after) and compared against the
-# global prox. The router's verdict must never claim safety the oracle
+# Exhaustive tile-safety oracle for the auto-routing prox guard: every
+# library prox x {A, S} x kwargs variant is applied exactly the way the
+# fused engine would apply it (S: per column tile on the factor
+# row-padded to a power of two, masked after; A: whole) and compared
+# against the global prox. The router's verdict must never claim safety the oracle
 # refutes, and must match the oracle exactly on the library surface.
 
 def _kernel_style_S(prox, S, step, K, tile):
-    """Emulate _pgm_step_kernel's prox_S application: row-pad to the
-    sublane tile, apply per column tile, mask padding, crop."""
-    Kp = 8 * ((K + 7) // 8)
+    """Emulate _pgm_step_kernel's prox_S application: row-pad to a power
+    of two, apply per column tile, mask padding, crop."""
+    Kp = 1 << (K - 1).bit_length()
     N = S.shape[1]
     S_p = jnp.pad(jnp.asarray(S), ((0, Kp - K), (0, 0)))
     outs = []
@@ -1288,14 +1285,8 @@ def _kernel_style_S(prox, S, step, K, tile):
 
 
 def _runner_style_A(prox, A, step, C, K):
-    """Emulate the fused runners' prox_A application: zero-pad both
-    factor dims to the sublane tile, apply whole, where-mask, crop."""
-    Cp = 8 * ((C + 7) // 8)
-    Kp = 8 * ((K + 7) // 8)
-    A_p = jnp.pad(jnp.asarray(A), ((0, Cp - C), (0, Kp - K)))
-    mask = jnp.zeros((Cp, Kp), bool).at[:C, :K].set(True)
-    out = jnp.where(mask, prox(A_p, step), 0.0)
-    return np.asarray(out)[:C, :K]
+    """Emulate the fused runners' prox_A application: whole, unpadded."""
+    return np.asarray(prox(jnp.asarray(A), step))
 
 
 def _tile_safety_matrix():

@@ -642,14 +642,19 @@ def test_nmf_pgm_fused_state_config_mismatches_rejected(rng):
             mesh=make_mesh(), e_rel=0.0)
 
 
-def test_nmf_fused_resume_review_findings(rng):
+def test_nmf_fused_resume_review_findings(rng, monkeypatch):
     """r4 self-review regressions: (a) a no-op resume of a stopped
     fused solve reports the solve's REAL loss, not the inf loop init;
     (b) resuming with the exact kwargs that produced the state through
-    engine='auto' store_dtype normalization is accepted (f32 ≡ None);
-    (c) a fused-PGM state into algorithm='adaprox' is rejected clearly;
-    (d) a tile_n mismatch is rejected instead of silently drifting."""
+    engine='auto' store_dtype normalization is accepted (f32 ≡ None) —
+    routing as on a CUDA GPU, the only backend where auto picks a
+    kernel; (c) a fused-PGM state into algorithm='adaprox' is rejected
+    clearly; (d) a tile_n mismatch is rejected instead of silently
+    drifting."""
+    from proxmin_tpu import nmf as nmf_mod
     from proxmin_tpu.nmf import nmf_adaprox_fused, nmf_pgm_fused
+
+    monkeypatch.setattr(nmf_mod, "cuda_available", lambda: True)
 
     Y, A0, S0 = _nmf_problem32(rng)
 

@@ -517,8 +517,8 @@ def test_full_sharded_solve_weighted_stride_matches_single_device(problem,
 
 
 def test_full_sharded_solve_multi_level_data_axes(problem, rng):
-    """Multi-slice layout: the pixel axis sharded over TWO mesh axes
-    (("dcn", "data") — DCN across slices, ICI within) must match the
+    """Multi-level layout: the pixel axis sharded over TWO mesh axes
+    (e.g. across hosts, then within a host) must match the
     single-device solve; psum/pmax complete over both axes. Weighted +
     strided exercises the warm-start refresh collectives too."""
     Y, A0, S0 = problem
@@ -731,7 +731,7 @@ def test_export_sharded_serves_without_library(tmp_path, rng):
 
 
 def test_export_sharded_cross_platform(rng):
-    """platforms=('tpu','cpu'): the sharded artifact lowers for both
+    """platforms=('cuda','cpu'): the sharded artifact lowers for both
     platforms (no platform-specific custom calls) and serves on CPU."""
     from jax import export as jax_export
     from jax.sharding import NamedSharding
@@ -741,9 +741,9 @@ def test_export_sharded_cross_platform(rng):
     Y, A0, S0 = _f32_problem(rng, C=4, K=3, N=64)
     mesh = make_mesh()
     blob = export_nmf_pgm_sharded(mesh, 4, 3, 64, e_rel=0.0,
-                                  platforms=("tpu", "cpu"))
+                                  platforms=("cuda", "cpu"))
     exp = jax_export.deserialize(blob)
-    assert set(exp.platforms) == {"tpu", "cpu"}
+    assert set(exp.platforms) == {"cuda", "cpu"}
     A_d, S_d, Y_d, _ = _put_sharded(mesh, Y, A0, S0)
     n = jax.device_put(jnp.int32(9), NamedSharding(mesh, P()))
     A1, S1, it, *_ = exp.call(A_d, S_d, Y_d, n)
